@@ -1,0 +1,19 @@
+from obman_train_tpu_torch.ops.chamfer import batch_pairwise_sqdist, chamfer_min_sqdist
+from obman_train_tpu_torch.ops.contact import compute_contact_loss, masked_mean_loss
+from obman_train_tpu_torch.ops.inside import batch_mesh_contains_points
+from obman_train_tpu_torch.ops.raytri import (
+    mesh_contains_points,
+    mesh_contains_points_plain,
+)
+from obman_train_tpu_torch.ops.rotations import rodrigues
+
+__all__ = [
+    "batch_mesh_contains_points",
+    "batch_pairwise_sqdist",
+    "chamfer_min_sqdist",
+    "compute_contact_loss",
+    "masked_mean_loss",
+    "mesh_contains_points",
+    "mesh_contains_points_plain",
+    "rodrigues",
+]
