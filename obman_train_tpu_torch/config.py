@@ -1,5 +1,6 @@
-"""Model configuration: the model-side dataclasses of the JAX package's
-``config.py`` (:73-178), with the same fields and defaults.
+"""Configuration: the model-side dataclasses of the JAX package's
+``config.py`` (:73-178) and its ``TrainConfig`` (:182-200), with the same
+fields and defaults.
 
 Only fp32 ``compute_dtype`` and the ``float32`` geometry path are ported so
 far; :class:`~obman_train_tpu_torch.models.handnet.HandNet` raises on the
@@ -100,3 +101,32 @@ class ModelConfig:
         return bool(
             m.lambda_verts or m.lambda_joints3d or m.lambda_joints2d or m.lambda_pca
         )
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimization setup (reference: traineval.py:113-127,179-182 and
+    options/nets3dopts.py:235-273)."""
+
+    optimizer: str = "adam"             # adam | rms | sgd
+    lr: float = 1e-4
+    momentum: float = 0.9
+    weight_decay: float = 0.0
+    epochs: int = 30
+    train_batch: int = 32
+    test_batch: int = 32
+    lr_decay_step: int = 300
+    lr_decay_gamma: float = 0.5
+    regul_decay_step: int = 300
+    regul_decay_gamma: float = 1.0
+    freeze_batchnorm: bool = True        # default training recipe (README.md:133)
+    freeze_encoder: bool = False
+    atlas_freeze_encoder: bool = False
+    atlas_freeze_decoder: bool = False
+    manual_seed: int = 0
+    snapshot: int = 5
+    # Gradient accumulation: microbatches per optimizer update (1 = off).
+    grad_accum: int = 1
+    # Parallelism: 1-D data mesh; batch is sharded, params replicated.
+    mesh_shape: Tuple[int, ...] = (1,)
+    mesh_axis_names: Tuple[str, ...] = ("data",)

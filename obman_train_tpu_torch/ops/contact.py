@@ -28,14 +28,19 @@ from obman_train_tpu_torch.ops.raytri import mesh_contains_points
 ContainsFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
+# The cached masks are made outside inference mode even when the first
+# call comes from inside it: an inference tensor cannot enter a graph that
+# autograd records, so a cache filled by serving would break training.
 @functools.lru_cache(maxsize=8)
 def _zone_masks_on(device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(zone_masks().copy()).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(zone_masks().copy()).to(device)
 
 
 @functools.lru_cache(maxsize=8)
 def _tips_mask_on(device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(tips_mask()).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(tips_mask()).to(device)
 
 
 def masked_mean_loss(vals: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

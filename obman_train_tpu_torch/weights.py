@@ -87,6 +87,9 @@ def state_dict_from_jax(variables: Mapping, dropout: float = 0.0) -> Dict[str, t
     ``dropout`` is the model's ``fc_dropout``: with dropout the reference's
     MANO MLP interleaves ``Dropout`` modules, which shifts the Linear
     indices of ``mano_branch.base_layer``.
+
+    Gradients have the parameters' tree, so ``{"params": grads}`` converts
+    JAX gradients to the port's keys and layouts the same way.
     """
     params = _flatten(variables["params"])
     stats = _flatten(variables.get("batch_stats", {}))

@@ -213,16 +213,25 @@ def test_rich_config_round_trip_and_forward():
 
 
 def test_loss_path_and_training_mode_raise():
+    """The loss path runs (``no_loss=False`` gives a finite total and the
+    loss dict; its parity with JAX is tests/test_torch_losses.py), while
+    unfrozen-BN training mode (``net.train()``) still raises."""
     _, pcfg = _configs(CONTACT)
     net = build_handnet(pcfg, synthetic_mano_assets("right"),
                         synthetic_mano_assets("left"), device="cpu")
+    rng = np.random.default_rng(0)
     batch = {"images": torch.zeros((1, 32, 32, 3), dtype=torch.uint8),
-             "sides": torch.zeros((1,), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="loss path: later slice"):
-        net(batch, INFER_SPEC, no_loss=False)
+             "sides": torch.zeros((1,), dtype=torch.int32),
+             "joints3d": torch.from_numpy(rng.normal(0, 30, (1, 21, 3)).astype(np.float32)),
+             "verts3d": torch.from_numpy(rng.normal(0, 30, (1, 778, 3)).astype(np.float32)),
+             "objpoints3d": torch.from_numpy(rng.normal(0, 50, (1, 600, 3)).astype(np.float32))}
+    with torch.no_grad():
+        total, _, losses = net(batch, BatchSpec(), no_loss=False)
+    assert torch.isfinite(total) and losses["total_loss"] is total
     net.train()
-    with pytest.raises(NotImplementedError):
-        net(batch, INFER_SPEC, no_loss=True)
+    for no_loss in (False, True):
+        with pytest.raises(NotImplementedError, match="training mode"):
+            net(batch, BatchSpec(), no_loss=no_loss)
 
 
 def test_unported_dtypes_raise():

@@ -59,3 +59,17 @@ def test_every_module_imports_without_jax():
                           cwd=REPO, env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def test_walk_covers_every_slice_module():
+    """The checks above walk the package; the modules of both slices are
+    among what they walk."""
+    walked = {m for _, m in _modules()}
+    for name in (
+        "obman_train_tpu_torch.infer", "obman_train_tpu_torch.ops.raytri",
+        "obman_train_tpu_torch.ops.nnsqdist", "obman_train_tpu_torch.ops.chamfer",
+        "obman_train_tpu_torch.ops.mesh", "obman_train_tpu_torch.assets.laplacian",
+        "obman_train_tpu_torch.models.losses", "obman_train_tpu_torch.train",
+        "obman_train_tpu_torch.train.steps",
+    ):
+        assert name in walked, name
