@@ -11,8 +11,15 @@ each fatal on failure:
    nvcc per source, all started together), with ptxas registers and spills;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' full shapes and on ragged ones (tolerance: exact, values
-   and argmins), with CUDA-event times of both, the card's lower bound, and,
-   for the nearest-neighbour kernel, the dense-plane route's time;
+   and argmins), with CUDA-event times of both (``ms``: eager calls, as
+   a caller sees them; ``device_ms``: the same calls replayed from a CUDA
+   graph, without the host's cost of a call), the card's lower bound and
+   the share of it that the device time reaches, and, for the
+   nearest-neighbour kernel, its launch plan (queries per thread R, slices
+   S of the search set, blocks) and the dense-plane route's time. Shapes that split the search set
+   across blocks (one large cloud, a tiny query set against a large search
+   set) carry a minimum whose first occurrence lies in a middle slice and
+   repeats in the later ones;
 4. backward: ``chamfer_loss`` forward and gradient on the kernel route
    against the same VJP on the plain nearest-neighbour version;
    large-cloud Chamfer path: ``chamfer_loss`` at 1x16384x16384 with its
@@ -55,9 +62,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32_INSTS = 67e12 / 2  # float32 instructions/s
 PEAK_HBM_BYTES = 3.35e12     # bytes/s
 RAYTRI_OPS_PER_TEST = 36  # 31 arithmetic + 5 comparisons, raytri.cu
-# nnsqdist.cu per (query, search) pair: 3 sub + 3 mul + 2 add + 1 min,
-# and 1 select more for the argmin
-NN_OPS_PER_PAIR = {False: 9, True: 10}
+# nnsqdist.cu per (query, search) pair: 3 sub + 3 mul + 2 add + 1 min. The
+# argmin variant is counted at 9 as well: the least work any design of the
+# same function does is the min alone (its index bookkeeping can be
+# amortised, so a count of 10 could read above 100 % of the bound)
+NN_OPS_PER_PAIR = {False: 9, True: 9}
 KERNELS = ("raytri", "nnsqdist")
 
 B_FULL, IMAGE = 256, 256
@@ -86,6 +95,33 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int, replays: int = 3) -> float:
+    """Mean device milliseconds of ``fn()``: ``iters`` calls captured in one
+    CUDA graph, replayed ``replays`` times between CUDA events, so the
+    host's cost of a call (Python, the wrapper, the launch) is not in it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture (builds, allocator)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * replays)
 
 
 def set_tf32(on: bool) -> None:
@@ -187,13 +223,15 @@ def phase_kernels():
             fail(f"raytri kernel disagrees on the ragged case B={b} P={p} T={t}")
 
     kernel_ms = cuda_ms(lambda: raytri.raytri_count(pts, table), iters=50)
+    device_ms = graph_ms(lambda: raytri.raytri_count(pts, table), iters=50)
     plain_ms = cuda_ms(lambda: raytri.raytri_count_plain(pts, table), iters=3, warmup=1)
     ops = B_FULL * P * T * RAYTRI_OPS_PER_TEST
     nbytes = pts.numel() * 4 + table.numel() * 4 + got.numel() * 4
     ops_ms, bytes_ms = ops / PEAK_FP32_INSTS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-    log(f"raytri times (warm L2, TF32 off): kernel {kernel_ms:.4f} ms, plain "
-        f"{plain_ms:.3f} ms; bound {max(ops_ms, bytes_ms):.4f} ms "
-        f"(ops {ops_ms:.4f} ms, bytes {bytes_ms:.4f} ms)")
+    bound_ms = max(ops_ms, bytes_ms)
+    log(f"raytri times (warm L2, TF32 off): kernel {kernel_ms:.4f} ms (device "
+        f"{device_ms:.4f} ms), plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms "
+        f"(ops {ops_ms:.4f} ms, bytes {bytes_ms:.4f} ms), {bound_ms / device_ms:.1%} of it")
     return {
         "name": raytri.KERNEL,
         "route": "cuda",
@@ -204,10 +242,12 @@ def phase_kernels():
         "mismatches": mismatches,
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
+        "device_ms": device_ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_ms": bound_ms,
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": None,  # no single PyTorch call computes ray parity
+        "share_of_bound": bound_ms / device_ms,
         "tf32": "off",
     }
 
@@ -226,6 +266,10 @@ NN_SHAPES = (
     (1, 1, 1, (False, True)),
     (3, 100, 77, (False, True)),
     (2, 129, 2049, (False, True)),
+    # the search set split across blocks, ragged slices, ties across them
+    (1, 4097, 20000, (False, True)),
+    (2, 129, 70000, (False, True)),
+    (1, 1, 50000, (False, True)),
 )
 # The rows of the kernel table: (name, counter, TPU kernel, shape, argmin,
 # the path whose run gives the row's launches)
@@ -280,6 +324,9 @@ def phase_nn_kernels():
     rows = {}
     for seed, (B, N, M, variants) in enumerate(NN_SHAPES):
         q, s = nn_scene(B, N, M, seed)
+        sms = nnsqdist._sms(q.device)
+        plan = nnsqdist._launch_plan(B, N, M, sms)
+        nnsqdist.tie_across_slices(q, s, sms)
         for am in variants:
             got, garg = nnsqdist.nn_dir(q, s, am)
             torch.cuda.synchronize()
@@ -292,19 +339,28 @@ def phase_nn_kernels():
                 fail(f"{label}: {bad} values and {bad_arg} argmins differ from the plain version")
             pairs = B * N * M
             big = pairs >= 1e8
+            # eager calls (the host's time where that is the longer) and the
+            # device's (the same calls replayed from a CUDA graph)
             ms = cuda_ms(lambda: nnsqdist.nn_dir(q, s, am), iters=20 if big else 50)
+            device_ms = graph_ms(lambda: nnsqdist.nn_dir(q, s, am), iters=20 if big else 50)
             plain = cuda_ms(lambda: nnsqdist.nn_dir_plain(q, s, am), iters=2, warmup=1)
             plane = cuda_ms(lambda: _plane_route(q, s, am), iters=3 if big else 10, warmup=1)
             ops_ms = pairs * NN_OPS_PER_PAIR[am] / PEAK_FP32_INSTS * 1e3
             nbytes = (q.numel() + s.numel() + B * N) * 4 + (B * N * 8 if am else 0)
             bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
-            row = dict(max_abs_err=err, mismatches=bad + bad_arg, ms=ms, plain_ms=plain,
+            row = dict(max_abs_err=err, mismatches=bad + bad_arg, ms=ms, device_ms=device_ms,
+                       plain_ms=plain,
                        plane_ms=plane, bound_ms=max(ops_ms, bytes_ms),
-                       bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+                       bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                       plan=dict(zip(("rows", "slices", "slice_len", "blocks"), plan)))
+            row["share_of_bound"] = row["bound_ms"] / device_ms
             rows[(B, N, M, am)] = row
-            log(f"{label}: 0 mismatches (ties planted), kernel {ms:.4f} ms, plain "
+            log(f"{label}: 0 mismatches (ties planted), plan R={plan[0]} S={plan[1]} "
+                f"slice {plan[2]} blocks {plan[3]}; kernel {ms:.4f} ms (device "
+                f"{device_ms:.4f} ms), plain "
                 f"{plain:.3f} ms, dense plane {plane:.3f} ms, bound {row['bound_ms']:.4f} ms "
-                f"({row['bound_by']}; ops {ops_ms:.4f}, bytes {bytes_ms:.4f})")
+                f"({row['bound_by']}; ops {ops_ms:.4f}, bytes {bytes_ms:.4f}), device time "
+                f"{row['share_of_bound']:.1%} of it")
         del q, s
     torch.cuda.empty_cache()
     entries = []
@@ -315,11 +371,12 @@ def phase_nn_kernels():
             "source": "obman_train_tpu_torch/ops/kernels/nnsqdist.cu",
             "replaces": replaces, "shape": [B, N, M], "path": path, "launches": None,
             "max_abs_err": row["max_abs_err"], "mismatches": row["mismatches"],
-            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": None,  # no single PyTorch call computes a nearest-neighbour min
             "plane_ms": row["plane_ms"], "ops_per_pair": NN_OPS_PER_PAIR[am],
-            "tf32": "off",
+            "share_of_bound": row["share_of_bound"], "plan": row["plan"], "tf32": "off",
         })
     return entries
 

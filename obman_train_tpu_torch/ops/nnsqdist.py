@@ -5,12 +5,16 @@ ops/pallas/chamfer_kernel.py). One kernel, ``nn_dir``, does one direction:
 for each query point, the min of ``(dx*dx + dy*dy) + dz*dz`` over the search
 set, and optionally the first index that reaches it. The bidirectional
 entry :func:`nn_min_sqdist` (the counterpart of
-``pallas_chamfer_min_sqdist``) runs it twice, x->y and y->x. A fused
-one-pass sweep would need, for every search point, a reduction of its
-per-y min across the block's threads (or a 64-bit ``atomicMin`` on
-``(float bits << 32 | index)``); that costs more than recomputing three
-differences, and the TPU's split layout computes every distance twice as
-well (chamfer_kernel.py:294-295).
+``pallas_chamfer_min_sqdist``) runs it twice, x->y and y->x: a fused pass
+would need, for every search point, a reduction of its per-y min across the
+block's threads, which costs more than recomputing three differences (the
+TPU's split layout computes every distance twice as well,
+chamfer_kernel.py:294-295). Inside one direction the search set is split
+where that pays: across the warps of a block always, and across blocks
+(``S`` slices, :func:`_launch_plan`) when the query tiles alone leave the
+card short of blocks, as on one large cloud. Each split is merged exactly:
+values equal the plain version bit for bit, argmins keep the first
+occurrence.
 
 Dispatch goes by the tensor's device: a CUDA tensor launches the kernel
 (and raises if it cannot be built or launched), a CPU tensor takes the
@@ -21,6 +25,7 @@ operation for operation so the two agree bit for bit.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -32,6 +37,17 @@ KERNEL_ARGMIN = "nn_dir_argmin"
 # Pairs per step of the plain version: each (b, n, M) temporary stays
 # ~64 MB (chunked over the batch, and over query rows of a large example).
 _PLAIN_PAIRS = 1 << 24
+
+# The launch plan (nnsqdist.cu): a block holds 32 * ROWS queries. Below
+# _SPLIT_BELOW blocks per SM the search set is cut into slices, each a
+# block of its own, until the grid has about _BLOCKS_PER_SM blocks per SM,
+# but with slices of about _MIN_SLICE points (one staged chunk) or more,
+# a multiple of 32 long.
+ROWS = 4  # queries per thread, kR of nnsqdist.cu
+H100_SMS = 132
+_SPLIT_BELOW = 4
+_BLOCKS_PER_SM = 16
+_MIN_SLICE = 512
 
 
 def _dir_plain_block(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -97,26 +113,62 @@ def nn_dir(
         raise ValueError(f"nn_dir: unsupported device {query.device}")
     B, N, _ = query.shape
     M = search.shape[1]
-    if B > 65535:
-        raise ValueError(f"nn_dir: batch {B} exceeds the grid's y limit")
-    if max(N, M) >= 2**31 // 3:
-        raise ValueError(f"nn_dir: {max(N, M)} points exceed the int32 index")
+    dev = query.device
+    _, slices, slice_len, _ = _launch_plan(B, N, M, _sms(dev))
     query = query.detach().contiguous()
     search = search.detach().contiguous()
-    mins = torch.empty((B, N), dtype=torch.float32, device=query.device)
-    args = (torch.empty((B, N), dtype=torch.int64, device=query.device)
-            if with_argmin else None)
+    mins = torch.empty((B, N), dtype=torch.float32, device=dev)
+    args = torch.empty((B, N), dtype=torch.int64, device=dev) if with_argmin else None
+    part_min = part_arg = None  # the slice merge's scratch
+    if slices > 1:
+        part_min = torch.empty((slices, B, N), dtype=torch.float32, device=dev)
+        if with_argmin:
+            part_arg = torch.empty((slices, B, N), dtype=torch.int32, device=dev)
     lib = _library()
-    with torch.cuda.device(query.device):
-        stream = torch.cuda.current_stream(query.device).cuda_stream
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.nn_dir(
             query.data_ptr(), search.data_ptr(), B, N, M, int(with_argmin),
-            mins.data_ptr(), args.data_ptr() if with_argmin else None, stream,
+            slices, slice_len, _ptr(part_min), _ptr(part_arg), mins.data_ptr(),
+            _ptr(args), stream,
         )
     if err != 0:
         raise RuntimeError(f"nn_dir kernel launch failed: CUDA error {err}")
     LAUNCHES[KERNEL_ARGMIN if with_argmin else KERNEL_MIN] += 1
     return mins, args
+
+
+def _launch_plan(B: int, N: int, M: int, sms: int = H100_SMS):
+    """``(ROWS, S, slice_len, blocks)`` of one ``nn_dir`` launch on a card
+    of ``sms`` SMs: queries per thread, slices of the search set, points per
+    slice (the last one ragged), and the blocks of the grid
+    ``(ceil(N / (32 ROWS)), S, B)``.
+    ``S`` is 1 unless the query tiles alone give fewer than
+    ``_SPLIT_BELOW`` blocks per SM. Raises where the grid or the kernel's
+    int32 indices cannot hold the launch."""
+    if B > 65535:
+        raise ValueError(f"nn_dir: batch {B} exceeds the grid's z limit")
+    if max(N, M) >= 2**31 // 3:
+        raise ValueError(f"nn_dir: {max(N, M)} points exceed the int32 index")
+    tiles = -(-N // (32 * ROWS))
+    base = tiles * B
+    slices = 1
+    if base < _SPLIT_BELOW * sms:
+        slices = min(-(-_BLOCKS_PER_SM * sms // base), -(-M // _MIN_SLICE))
+    slice_len = -(-M // slices)
+    if slices > 1:
+        slice_len = -(-slice_len // 32) * 32
+    slices = -(-M // slice_len)
+    return ROWS, slices, slice_len, tiles * slices * B
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def _library() -> ctypes.CDLL:
@@ -125,11 +177,29 @@ def _library() -> ctypes.CDLL:
     lib = build.load("nnsqdist")
     lib.nn_dir.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p,
     ]
     lib.nn_dir.restype = ctypes.c_int
     return lib
+
+
+def tie_across_slices(query: torch.Tensor, search: torch.Tensor,
+                      sms: int = H100_SMS) -> None:
+    """A test scene: where the launch plan on a card of ``sms`` SMs splits
+    the search set into 3 or more slices, plants in place, for query point
+    0 of every batch element, a minimum whose first occurrence lies in a
+    middle slice and whose repeats lie in every later slice."""
+    B, N, _ = query.shape
+    M = search.shape[1]
+    _, slices, slice_len, _ = _launch_plan(B, N, M, sms)
+    if slices < 3:
+        return
+    first = (slices // 2) * slice_len + 5
+    for j in [*range(first + slice_len, M, slice_len), M - 1]:
+        search[:, j] = search[:, first]
+    query[:, 0] = search[:, first] + 0.25
 
 
 def nn_min_sqdist(x: torch.Tensor, y: torch.Tensor, with_argmin: bool = False):

@@ -120,10 +120,15 @@ def _clouds(seed, B, N, M):
 
 
 @pytest.mark.parametrize("B,N,M", [(8, 600, 642), (4, 778, 642), (3, 100, 77), (1, 1, 1),
-                                   (2, 129, 2049), (1, 4096, 5000)])
+                                   (2, 129, 2049), (1, 4096, 5000), (1, 4097, 20000),
+                                   (2, 129, 70000), (1, 1, 50000)])
 @pytest.mark.parametrize("with_argmin", [False, True])
 def test_nn_kernel_equals_plain(cuda, B, N, M, with_argmin):
-    x, y = (t.to(cuda) for t in _clouds(B + N + M, B, N, M))
+    x, y = _clouds(B + N + M, B, N, M)
+    # where the plan splits the search set: a minimum first found in a
+    # middle slice and repeated in every later one
+    nnsqdist.tie_across_slices(x, y, nnsqdist._sms(cuda))
+    x, y = x.to(cuda), y.to(cuda)
     name = nnsqdist.KERNEL_ARGMIN if with_argmin else nnsqdist.KERNEL_MIN
     before = LAUNCHES[name]
     got, garg = nnsqdist.nn_dir(x, y, with_argmin)

@@ -8,6 +8,10 @@ points, query points on search points). Argmins must be equal exactly
 evaluates the Pallas kernel's ``d0*d0 + d1*d1 + d2*d2`` with its own
 rounding (not one rounding per operation), which this file measured as at
 most 2 ulp; the port rounds every operation, as the CUDA kernel does.
+
+The kernel's launch plan (``_launch_plan``: query tiles, slices of the
+search set, blocks) is host code and is tested here as well; the kernel
+itself runs in ``test_torch_cuda.py`` on the card.
 """
 
 import jax.numpy as jnp
@@ -111,3 +115,82 @@ def test_wrapper_checks_its_inputs():
     mins, args = nnsqdist.nn_dir(x, x)
     # a CPU tensor takes the plain version: no kernel launch is counted
     assert args is None and mins.shape == (2, 5) and dict(nnsqdist.LAUNCHES) == before
+
+
+TRAIN_POINTS = (600, 642, 778)
+
+
+@pytest.mark.parametrize("N", TRAIN_POINTS)
+@pytest.mark.parametrize("M", TRAIN_POINTS)
+def test_launch_plan_keeps_training_shapes_whole(N, M):
+    """At B=256 the query tiles fill the card: one slice, no merge pass."""
+    rows, slices, slice_len, blocks = nnsqdist._launch_plan(256, N, M)
+    assert rows == nnsqdist.ROWS
+    assert (slices, slice_len) == (1, M)
+    assert blocks == 256 * -(-N // (32 * rows)) >= nnsqdist._SPLIT_BELOW * nnsqdist.H100_SMS
+
+
+@pytest.mark.parametrize("N", [16384, 20000])
+def test_launch_plan_splits_one_large_cloud(N):
+    rows, slices, slice_len, blocks = nnsqdist._launch_plan(1, N, N)
+    tiles = -(-N // (32 * rows))
+    assert slices > 1 and blocks == tiles * slices
+    assert blocks >= nnsqdist._BLOCKS_PER_SM * nnsqdist.H100_SMS
+    assert slice_len >= nnsqdist._MIN_SLICE and slice_len % 32 == 0
+
+
+@pytest.mark.parametrize("B,N,M", [(1, 1, 1), (1, 1, 77), (1, 1, 512), (1, 1, 513),
+                                   (1, 4097, 20000), (2, 129, 70000), (1, 1, 50000),
+                                   (1, 16384, 16384), (8, 600, 642)])
+def test_launch_plan_slices_cover_the_search_set(B, N, M):
+    """The slices [s * slice_len, min(M, (s + 1) * slice_len)) are all
+    non-empty and cover [0, M) exactly once; only the last may be short."""
+    _, slices, slice_len, _ = nnsqdist._launch_plan(B, N, M)
+    bounds = [(s * slice_len, min(M, (s + 1) * slice_len)) for s in range(slices)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == M
+    assert all(a < b for a, b in bounds)
+    assert all(b == a2 for (_, b), (a2, _) in zip(bounds, bounds[1:]))
+    assert all(b - a == slice_len for a, b in bounds[:-1])
+    if slices > 1 and M % slice_len:
+        assert bounds[-1][1] - bounds[-1][0] < slice_len  # the ragged tail
+
+
+def test_launch_plan_adapts_to_the_card():
+    """A card with fewer SMs is filled by fewer slices, one with more SMs
+    by more; a batch that fills either card stays whole."""
+    plan = lambda sms, B=1: nnsqdist._launch_plan(B, 16384, 16384, sms)  # noqa: E731
+    assert plan(66)[1] < plan(nnsqdist.H100_SMS)[1] < plan(264)[1]
+    assert plan(66, B=256)[1] == plan(264, B=256)[1] == 1
+
+
+@pytest.mark.parametrize("B,N,M", [(1, 4097, 20000), (2, 129, 70000), (1, 1, 50000),
+                                   (1, 16384, 16384), (8, 600, 642)])
+def test_tie_across_slices_plants_a_first_occurrence_in_a_middle_slice(B, N, M):
+    """The test scene of the split shapes: query 0's minimum, first found in
+    a middle slice, repeats in every later slice; the plain argmin keeps
+    the first."""
+    gen = torch.Generator().manual_seed(B + N + M)
+    q, s = (torch.randn(B, n, 3, generator=gen) * 40 for n in (N, M))
+    q0, s0 = q.clone(), s.clone()
+    nnsqdist.tie_across_slices(q, s)
+    _, slices, slice_len, _ = nnsqdist._launch_plan(B, N, M)
+    if slices < 3:
+        assert torch.equal(q, q0) and torch.equal(s, s0)
+        return
+    first = (slices // 2) * slice_len + 5
+    mins, args = nnsqdist.nn_dir_plain(q[:, :1], s, with_argmin=True)
+    assert (args == first).all() and 0 < first // slice_len < slices - 1
+    d = ((s - q[:, :1]) ** 2).sum(-1)
+    hits = (d == d[:, first:first + 1]).nonzero()[:, 1].unique()
+    later = {int(j) // slice_len for j in hits if j > first}
+    assert later == set(range(first // slice_len + 1, slices))
+
+
+def test_launch_plan_refuses_what_the_kernel_cannot_index():
+    with pytest.raises(ValueError, match="z limit"):
+        nnsqdist._launch_plan(65536, 10, 10)
+    with pytest.raises(ValueError, match="int32 index"):
+        nnsqdist._launch_plan(1, 2**31 // 3, 10)
+    with pytest.raises(ValueError, match="int32 index"):
+        nnsqdist._launch_plan(1, 10, 2**31 // 3)
+    nnsqdist._launch_plan(65535, 10, 2**31 // 3 - 1)  # at the limits
