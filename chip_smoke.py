@@ -8,7 +8,8 @@ each fatal on failure:
 
 1. device: name, count, and ``nvidia-smi``'s name and power limit;
 2. build: every CUDA kernel of the port, from the sources in the repo (one
-   nvcc per source, all started together), with ptxas registers and spills;
+   nvcc per source, all started together), with ptxas registers and spills,
+   and beside them the input pipeline's host C++ warp (g++);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' full shapes and on ragged ones (tolerance: exact, values
    and argmins), with CUDA-event times of both (``ms``: eager calls, as
@@ -34,10 +35,21 @@ each fatal on failure:
    frames, the synthetic GT batch, adam at lr 1e-4, frozen BN) through
    ``train.make_train_step``: launch counts per step, loss names and
    finiteness, a falling loss over 10 steps, gradients against the CPU
-   port, samples/s, a breakdown of one step and the profiler's busy share.
+   port, samples/s, a breakdown of one step and the profiler's busy share;
+7. slice 4, the training entry point: ``cli.traineval``'s ``main()`` in
+   this process on the card (contact config, B=256, 256x256 synthetic
+   data, ``--synthetic_size 512``: 2 train and 2 val steps an epoch, PyTorch's
+   default TF32 setting): (a) 2 epochs; (b) ``--resume`` to a third, which
+   must start at epoch 2 with the optimizer's update count and moments
+   restored; (c) ``--resume --evaluate``, whose val metrics must equal the
+   ones logged for the same weights within 1e-5; (d) 1 epoch with
+   ``--device_augment``. Launches per train step inside the loop, finite
+   losses, the run's files; the loop's samples/s (epoch wall clock) and the
+   share of the epoch spent waiting for data.
 
-Output: progress lines, then one JSON line ``{"kernels": [...]}``, the
-``nvidia-smi`` line, and as the last line
+Output: progress lines, then one JSON line ``{"kernels": [...]}``, one
+JSON line ``{"traineval": {...}}``, the ``nvidia-smi`` line, and as the
+last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 With no GPU, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -156,13 +168,17 @@ def phase_device():
 def phase_build():
     from obman_train_tpu_torch.ops.kernels import build
 
+    from obman_train_tpu_torch.native import load_imageproc_lib
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
+    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+        host = pool.submit(load_imageproc_lib)
         list(pool.map(build.build, KERNELS))
+        host.result()
     for name in KERNELS:
         build.load(name)
-    log(f"build: {', '.join(k + '.cu' for k in KERNELS)} in "
-        f"{time.perf_counter() - t0:.2f} s (in parallel)")
+    log(f"build: {', '.join(k + '.cu' for k in KERNELS)} and the host warp "
+        f"native/imageproc.cpp in {time.perf_counter() - t0:.2f} s (in parallel)")
     for name in KERNELS:
         for line in build.BUILD_LOGS.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -886,6 +902,168 @@ def phase_slice(entry):
     return fps
 
 
+TRAINEVAL_SIZE = 512  # samples per split: 2 train and 2 val steps an epoch at B=256
+TRAINEVAL_FILES = ("checkpoint.pth.tar", "model_best.pth.tar", "opt.json", "logs/train.txt",
+                   "logs/val.txt", "metrics.json", "pcks/val/epoch_1.pkl")
+
+
+def _traineval_argv(exp):
+    return ["--train_datasets", "synthetic", "--val_datasets", "synthetic",
+            "--mano_assets", "synthetic", "--synthetic_size", str(TRAINEVAL_SIZE),
+            "--image_size", str(IMAGE), "--train_batch", str(B_FULL),
+            "--test_batch", str(B_FULL), "--contact_lambda", "0.167",
+            "--collision_lambda", "0.167", "--atlas_predict_trans", "--atlas_predict_scale",
+            "--display_freq", "0", "--exp_id", exp]
+
+
+def _logged(exp, split):
+    from obman_train_tpu_torch.utils.logging import parse_log_line
+
+    with open(os.path.join(exp, "logs", f"{split}.txt")) as f:
+        return [parse_log_line(line) for line in f if line.strip()]
+
+
+def phase_traineval():
+    """Slice 4's main path: ``cli.traineval.main()`` in this process (see
+    the module docstring, phase 7). Each epoch pass of the loop is wrapped
+    to count the kernel launches and the wall clock of that pass; returns
+    the launches of run (a) and the measurements."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from obman_train_tpu_torch.cli import traineval
+    from obman_train_tpu_torch.ops.kernels import LAUNCHES
+    from obman_train_tpu_torch.train import loop
+
+    # a user's process: PyTorch's default (cuDNN TF32 on, matmul TF32 off)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    tf32 = {"matmul": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn": torch.backends.cudnn.allow_tf32}
+    passes = []
+    original = loop.epoch_pass
+
+    def counted(loader, state, epoch, train=True, **kw):
+        before = dict(LAUNCHES)
+        first_of_run = not any(p["run"] == passes_run[0] for p in passes)
+        restored = None
+        if train and first_of_run and passes_run[0] == "b":
+            restored = _optimizer_matches(state, passes_run[1])
+        step0 = state.step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = original(loader, state, epoch, train=train, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        meters = out[1].averages()
+        steps = len(loader)
+        passes.append({
+            "run": passes_run[0], "train": train, "epoch": epoch, "steps": steps,
+            "samples": steps * B_FULL, "wall_s": wall, "samples_per_s": steps * B_FULL / wall,
+            "data_time_s": meters["data_time"] * steps,
+            "data_wait_share": meters["data_time"] * steps / wall,
+            "launches": {k: LAUNCHES[k] - before.get(k, 0) for k in LAUNCHES
+                         if LAUNCHES[k] != before.get(k, 0)},
+            "step_count_at_start": step0,
+            "optimizer_restored": restored,
+        })
+        return out
+
+    passes_run = ["a", None]
+    result = {"synthetic_size": TRAINEVAL_SIZE, "batch": B_FULL, "tf32": tf32,
+              "cpu_count": os.cpu_count(), "workers": min(8, os.cpu_count() or 1)}
+    t_phase = time.perf_counter()
+    loop.epoch_pass = counted
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            exp = os.path.join(tmp, "run")
+            argv = _traineval_argv(exp)
+            # (a) two epochs, counted from 0
+            LAUNCHES.clear()
+            traineval.main(argv + ["--epochs", "2"])
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+            missing = [f for f in TRAINEVAL_FILES if not os.path.exists(os.path.join(exp, f))]
+            if missing:
+                fail(f"traineval run wrote no {missing}")
+            saved = torch.load(os.path.join(exp, "checkpoint.pth.tar"), map_location="cpu",
+                               weights_only=True)
+            if saved["epoch"] != 2 or saved["step"] != 4:
+                fail(f"traineval checkpoint at epoch {saved['epoch']}, step {saved['step']}; "
+                     "want 2 and 4")
+            # (b) resumed to a third epoch
+            passes_run[:] = ["b", saved["optimizer"]]
+            traineval.main(argv + ["--epochs", "3", "--resume", exp])
+            first_b = next(p for p in passes if p["run"] == "b" and p["train"])
+            if first_b["epoch"] != 2 or first_b["step_count_at_start"] != 4 \
+                    or not first_b["optimizer_restored"]:
+                fail(f"the resumed run started at epoch {first_b['epoch']}, update "
+                     f"{first_b['step_count_at_start']}, optimizer restored "
+                     f"{first_b['optimizer_restored']}; want 2, 4, True")
+            # (c) evaluate the checkpoint: the metrics logged for these weights
+            passes_run[:] = ["c", None]
+            logged = _logged(exp, "val")[-1][1]
+            _, val = traineval.main(argv + ["--resume", exp, "--evaluate"])
+            diffs = {k: abs(val[k] - logged[k]) / max(1.0, abs(logged[k]))
+                     for k in val if k not in ("data_time", "batch_time")}
+            worst = max(diffs.values())
+            log(f"traineval evaluate after resume vs the logged val line: worst "
+                f"|diff|/max(1,|v|) {worst:.3e} over {len(diffs)} metrics (limit 1e-5)")
+            if worst > 1e-5:
+                fail(f"evaluate-after-resume metrics differ from the logged ones: {diffs}")
+            # (d) one epoch with the colour jitter on the device
+            passes_run[:] = ["d", None]
+            exp_d = os.path.join(tmp, "device_augment")
+            traineval.main(_traineval_argv(exp_d) + ["--epochs", "1", "--device_augment"])
+            for e in (exp, exp_d):
+                for split in ("train", "val"):
+                    for epoch, values in _logged(e, split):
+                        bad = [k for k, v in values.items() if not np.isfinite(v)]
+                        if bad:
+                            fail(f"non-finite {split} values at epoch {epoch}: {bad}")
+    finally:
+        loop.epoch_pass = original
+    for p in passes:
+        if p["train"]:
+            per_step = {k: v / p["steps"] for k, v in p["launches"].items()}
+            if per_step != TRAIN_LAUNCHES:
+                fail(f"run ({p['run']}) epoch {p['epoch']}: launches per train step inside "
+                     f"the loop {per_step}, want {TRAIN_LAUNCHES}")
+        log(f"traineval run ({p['run']}) epoch {p['epoch']} {'train' if p['train'] else 'val'}:"
+            f" {p['steps']} steps, {p['samples_per_s']:.1f} samples/s over {p['wall_s']:.3f} s,"
+            f" data wait {p['data_time_s']:.3f} s ({p['data_wait_share']:.1%}); launches "
+            f"{p['launches']}")
+    train_passes = [p for p in passes if p["train"]]
+    result.update(
+        launches=launches,
+        launches_per_train_step=TRAIN_LAUNCHES,
+        passes=passes,
+        train_samples_per_s={
+            "host_jitter": [p["samples_per_s"] for p in train_passes if p["run"] != "d"],
+            "device_augment": [p["samples_per_s"] for p in train_passes if p["run"] == "d"]},
+        data_wait_share={
+            "host_jitter": [p["data_wait_share"] for p in train_passes if p["run"] != "d"],
+            "device_augment": [p["data_wait_share"] for p in train_passes if p["run"] == "d"]},
+        evaluate_worst_rel_diff=worst,
+        seconds=time.perf_counter() - t_phase,
+    )
+    log(f"traineval phase: {result['seconds']:.1f} s")
+    torch.cuda.empty_cache()
+    return result
+
+
+def _optimizer_matches(state, saved):
+    """Whether the optimizer's moments equal the saved ones."""
+    import torch
+
+    live = state.optimizer.state_dict()["state"]
+    return live.keys() == saved["state"].keys() and all(
+        torch.equal(v.cpu(), saved["state"][i][k].cpu())
+        for i, st in live.items() for k, v in st.items())
+
+
 def _contact_kw(net):
     c = net.cfg.contact
     return dict(contact_thresh=c.contact_thresh, contact_mode=c.contact_mode,
@@ -903,15 +1081,33 @@ def main() -> None:
     phase_backward()
     large = phase_large_cloud()
     phase_slice(entry)
-    # launches: those of one train step, the main path of this slice; the
-    # large-cloud rows', those of the large-cloud Chamfer path
-    paths = {"train_step": phase_train()["launches"], "large_cloud_chamfer": large}
-    entry["launches"] = paths["train_step"]["raytri_count"]
-    entry["path"] = "train_step"
+    train = phase_train()
+    te = phase_traineval()
+    log("traineval loop vs bare step, samples/s at B=256: loop "
+        f"{json.dumps(te['train_samples_per_s'])} (epoch wall clock, TF32 "
+        f"{json.dumps(te['tf32'])}), bare step {json.dumps(train['samples_per_s'])}")
+    # launches: K1-K3 from run (a) of the training entry point, the main path
+    # of this slice (with one train step's beside them); the large-cloud
+    # rows', from the large-cloud Chamfer path
+    paths = {"traineval": te["launches"], "train_step": train["launches"],
+             "large_cloud_chamfer": large}
+    entry["path"] = "traineval"
     for e in nn_entries:
-        e["launches"] = paths[e["path"]][e["counter"]]
+        if e["path"] == "train_step":
+            e["path"] = "traineval"
+    for e in (entry, *nn_entries):
+        counter = e.get("counter", e["name"])
+        e["launches"] = paths[e["path"]][counter]
+        if e["path"] == "traineval":
+            e["launches_one_train_step"] = paths["train_step"][counter]
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [entry, *nn_entries]}), flush=True)
+    print(json.dumps({"traineval": {
+        **{k: te[k] for k in ("synthetic_size", "batch", "tf32", "cpu_count", "workers",
+                              "launches", "launches_per_train_step", "train_samples_per_s",
+                              "data_wait_share", "evaluate_worst_rel_diff", "seconds")},
+        "bare_step_samples_per_s": train["samples_per_s"],
+        "passes": te["passes"]}}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -1,6 +1,8 @@
-"""Configuration: the model-side dataclasses of the JAX package's
-``config.py`` (:73-178) and its ``TrainConfig`` (:182-200), with the same
-fields and defaults.
+"""Configuration: the dataclasses of the JAX package's ``config.py``
+(:73-242) with the same fields and defaults, and its JSON mixin (:24-70),
+so an ``opt.json`` written by either package loads in the other to an
+equal config. Missing keys are backfilled from the defaults and unknown
+keys ignored, the reference's schema migration (reload.py:42-72).
 
 Only fp32 ``compute_dtype`` and the ``float32`` geometry path are ported so
 far; :class:`~obman_train_tpu_torch.models.handnet.HandNet` raises on the
@@ -9,12 +11,56 @@ others.
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import typing
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 
+def _fromdict(cls, data: dict):
+    """Build ``cls`` from a dict, backfilling defaults and recursing into
+    nested dataclass fields; unknown keys are ignored. JSON lists become
+    tuples."""
+    hints = typing.get_type_hints(cls)
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in data:
+            continue
+        val = data[f.name]
+        ftype = hints.get(f.name, f.type)
+        if isinstance(val, dict) and dataclasses.is_dataclass(ftype):
+            val = _fromdict(ftype, val)
+        elif isinstance(val, list):
+            val = tuple(val)
+        kwargs[f.name] = val
+    return cls(**kwargs)
+
+
+class JsonConfigMixin:
+    def to_json(self, path: Optional[str] = None) -> str:
+        s = json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+        if path is not None:
+            with open(path, "w") as f:
+                f.write(s)
+        return s
+
+    @classmethod
+    def from_json(cls, s_or_path: str):
+        """From a JSON string or the path of a JSON file."""
+        if s_or_path.lstrip().startswith("{"):
+            data = json.loads(s_or_path)
+        else:
+            with open(s_or_path) as f:
+                data = json.load(f)
+        return _fromdict(cls, data)
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
 @dataclass(frozen=True)
-class ManoConfig:
+class ManoConfig(JsonConfigMixin):
     """MANO hand branch (reference: manobranch.py:11-113, handnet.py:128-155)."""
 
     ncomps: int = 6
@@ -35,7 +81,7 @@ class ManoConfig:
 
 
 @dataclass(frozen=True)
-class AtlasConfig:
+class AtlasConfig(JsonConfigMixin):
     """AtlasNet object branch (reference: atlasbranch.py:13-150)."""
 
     use_residual: bool = False
@@ -58,7 +104,7 @@ class AtlasConfig:
 
 
 @dataclass(frozen=True)
-class ContactConfig:
+class ContactConfig(JsonConfigMixin):
     """Contact/collision losses (reference: contactloss.py:149-308)."""
 
     contact_lambda: float = 0.0
@@ -73,7 +119,7 @@ class ContactConfig:
 
 
 @dataclass(frozen=True)
-class ModelConfig:
+class ModelConfig(JsonConfigMixin):
     """Top-level HandNet configuration (reference: handnet.py:20-186)."""
 
     resnet_version: int = 18
@@ -104,7 +150,7 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
-class TrainConfig:
+class TrainConfig(JsonConfigMixin):
     """Optimization setup (reference: traineval.py:113-127,179-182 and
     options/nets3dopts.py:235-273)."""
 
@@ -130,3 +176,38 @@ class TrainConfig:
     # Parallelism: 1-D data mesh; batch is sharded, params replicated.
     mesh_shape: Tuple[int, ...] = (1,)
     mesh_axis_names: Tuple[str, ...] = ("data",)
+
+
+@dataclass(frozen=True)
+class DataConfig(JsonConfigMixin):
+    train_datasets: Tuple[str, ...] = ("obman",)
+    train_splits: Tuple[str, ...] = ("train",)
+    val_datasets: Tuple[str, ...] = ("obman",)
+    val_splits: Tuple[str, ...] = ("val",)
+    sides: str = "left"                  # left | right | both
+    mini_factor: Optional[float] = None
+    point_nb: int = 600
+    center_idx: int = 9
+    mode: str = "all"                    # obman mode: all | obj | hand
+    override_scale: bool = False
+    limit_size: Optional[int] = None
+    max_rot: float = 3.141592653589793
+    scale_jittering: float = 0.3
+    center_jittering: float = 0.2
+    workers: int = 8
+
+
+@dataclass(frozen=True)
+class ExperimentConfig(JsonConfigMixin):
+    exp_id: str = "checkpoints/debug"
+    model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    evaluate: bool = False
+    save_results: bool = False
+    display_freq: int = 500
+    epoch_display_freq: int = 1
+    mano_assets: str = "misc/mano"        # dir with MANO_{LEFT,RIGHT}.pkl or .npz
+    # web-hosting mirror of the metric plots (reference --host_folder); None
+    # disables the copy
+    host_folder: Optional[str] = None

@@ -11,7 +11,9 @@ order, its quirks included: a first absolute loss enters the total
 unscaled (handnet.py:182-186), and the contact losses need the MANO branch.
 
 Frames arrive NHWC (uint8 or float) as on the JAX path and are permuted to
-NCHW once. Branch gating is static, from the config and a
+NCHW once. A uint8 batch that carries ``aug_factors``/``aug_order`` (the
+loader's ``--device_augment``) is colour-jittered after /255 and before
+-0.5, where the JAX package does it (handnet.py:137-149). Branch gating is static, from the config and a
 :class:`BatchSpec`, as in the JAX package. The module runs in ``eval()``
 mode only: frozen-BN training (the reference default) is ``eval()`` with
 gradients on, the JAX ``train=False``; unfrozen BN is a later slice.
@@ -36,6 +38,7 @@ from obman_train_tpu_torch.models.losses import compute_atlas_loss, compute_mano
 from obman_train_tpu_torch.models.resnet import resnet18, resnet50
 from obman_train_tpu_torch.ops.chamfer import min_sqdist_to
 from obman_train_tpu_torch.ops.contact import ContainsFn, compute_contact_loss
+from obman_train_tpu_torch.ops.image import batched_color_jitter
 from obman_train_tpu_torch.ops.mesh import meshiou
 
 
@@ -153,11 +156,17 @@ class HandNet(nn.Module):
         results: Dict[str, Any] = {}
         losses: Dict[str, Any] = {}
 
-        image = batch["images"].permute(0, 3, 1, 2)  # NHWC -> NCHW view
+        image = batch["images"]
         if not torch.is_floating_point(image):
             # uint8 pipeline: x/255 - 0.5 = to_tensor + normalize
             # (handataset.py:385-407)
-            image = image.to(torch.float32) / 255.0 - 0.5
+            image = image.to(torch.float32) / 255.0
+            if "aug_factors" in batch:
+                # device-side colour jitter; the host drew the factors
+                image = batched_color_jitter(
+                    image, batch["aug_factors"], batch["aug_order"])
+            image = image - 0.5
+        image = image.permute(0, 3, 1, 2)  # NHWC -> NCHW view
         features, _ = self.base_net(image)
         if cfg.atlas.separate_encoder:
             atlas_infeatures, _ = self.atlas_base_net(image)

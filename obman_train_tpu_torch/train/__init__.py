@@ -1,3 +1,4 @@
+from obman_train_tpu_torch.train.metrics import AverageMeters, EvalUtil
 from obman_train_tpu_torch.train.steps import (
     OptaxRMSprop,
     TrainState,
@@ -9,6 +10,8 @@ from obman_train_tpu_torch.train.steps import (
 )
 
 __all__ = [
+    "AverageMeters",
+    "EvalUtil",
     "OptaxRMSprop",
     "TrainState",
     "create_train_state",

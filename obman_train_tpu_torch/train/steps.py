@@ -131,8 +131,16 @@ def _net_device(net: nn.Module, device: DeviceLike) -> torch.device:
     return have
 
 
+# per-batch scalars that the host reads (the jitter's op order selects a
+# branch on the host, as lax.switch does on the TPU): kept on the CPU so
+# reading them does not wait for the device
+HOST_KEYS = ("aug_order",)
+
+
 def _to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
+    return {k: torch.as_tensor(v) if k in HOST_KEYS
+            else torch.as_tensor(v).to(device, non_blocking=True)
+            for k, v in batch.items()}
 
 
 def make_train_step(
@@ -142,11 +150,16 @@ def make_train_step(
     train_bn: bool = False,
     accum_steps: int = 1,
     device: DeviceLike = None,
-) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict[str, torch.Tensor]]]:
+    return_joints: bool = False,
+) -> Callable[[TrainState, Dict], Tuple]:
     """The train step ``step(state, batch) -> (state, losses)`` (JAX
     :138-305). It runs on ``device`` (default CUDA; raises without a GPU
     unless ``device="cpu"``), where the net must already be; the batch's
     arrays are moved there.
+
+    ``return_joints=True`` also returns the predicted joints of the step's
+    own forward, detached, for the epoch loop's PCK evaluator
+    (epochpass3d.py:141-151): ``(state, losses, joints)``.
 
     ``accum_steps=A > 1`` splits the batch into A strided microbatches
     (rows i, i+A, ...), sums their gradients and scales the sum by 1/A,
@@ -162,9 +175,10 @@ def make_train_step(
     dev = _net_device(net, device)
 
     def forward_backward(batch, regul_scale):
-        total, _, losses = net(batch, spec, regul_scale=regul_scale)
+        total, results, losses = net(batch, spec, regul_scale=regul_scale)
         total.backward()
-        return {k: v.detach() for k, v in losses.items()}
+        joints = results["joints"].detach() if return_joints else None
+        return {k: v.detach() for k, v in losses.items()}, joints
 
     def step_fn(state: TrainState, batch: Dict):
         if state.net is not net or state.optimizer is not opt:
@@ -173,19 +187,23 @@ def make_train_step(
         batch = _to_device(batch, dev)
         net.zero_grad(set_to_none=True)
         if accum_steps == 1:
-            losses = forward_backward(batch, state.regul_scale)
+            losses, joints = forward_backward(batch, state.regul_scale)
         else:
             b = int(batch["images"].shape[0])
             if b % accum_steps:
                 raise ValueError(
                     f"batch size {b} not divisible by accum_steps {accum_steps}")
-            losses = None
+            losses, joints = None, None
             for i in range(accum_steps):
                 micro = {k: v[i::accum_steps] if v.ndim and v.shape[0] == b else v
                          for k, v in batch.items()}
-                mb_losses = forward_backward(micro, state.regul_scale)
+                mb_losses, mb_joints = forward_backward(micro, state.regul_scale)
                 losses = mb_losses if losses is None else {
                     k: losses[k] + v for k, v in mb_losses.items()}
+                if return_joints:
+                    if joints is None:
+                        joints = mb_joints.new_empty((b,) + mb_joints.shape[1:])
+                    joints[i::accum_steps] = mb_joints  # back to row order
             inv = 1.0 / accum_steps
             with torch.no_grad():
                 for p in net.parameters():
@@ -197,6 +215,8 @@ def make_train_step(
             group["lr"] = lr
         opt.step()
         state.step += 1
+        if return_joints:
+            return state, losses, joints
         return state, losses
 
     return step_fn

@@ -225,3 +225,57 @@ def test_train_step_on_cuda_matches_cpu_port(cuda):
         scale = float(want.abs().max())
         torch.testing.assert_close(p.grad.cpu(), want, rtol=0, atol=1e-2 * scale + 1e-12,
                                    msg=name)
+
+
+def _loop_state(device, B_steps=2, B=8):
+    from obman_train_tpu_torch.data import factory, loader
+
+    ds = factory.get_dataset("synthetic", "train", meta={"size": B * B_steps, "img_res": 64},
+                             inp_res=64, device_augment=True)
+    train_loader = loader.BatchLoader(ds, batch_size=B, seed=0, num_workers=2)
+    net = init_weights(build_handnet(CONTACT, synthetic_mano_assets("right"),
+                                     synthetic_mano_assets("left"), device="cpu"),
+                       seed=0).to(device)
+    cfg = TrainConfig()
+    opt = train.make_optimizer(cfg, net)
+    return train_loader, train.create_train_state(net, opt, cfg, steps_per_epoch=B_steps)
+
+
+def test_training_loop_on_cuda_launches_the_kernels(cuda):
+    """Two contact-config train steps at B=8 through ``train.loop.epoch_pass``
+    with device-side jitter: each step launches K1 once, the argmin sweep 6
+    times and the min sweep once, inside the loop."""
+    from obman_train_tpu_torch.train.loop import epoch_pass
+
+    train_loader, state = _loop_state(cuda)
+    LAUNCHES.clear()
+    state, meters, pck = epoch_pass(train_loader, state, 0, train=True)
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {raytri.KERNEL: 2, nnsqdist.KERNEL_ARGMIN: 12,
+                              nnsqdist.KERNEL_MIN: 2}
+    assert state.step == 2
+    losses = meters.averages()
+    assert np.isfinite(losses["total_loss"]) and "contact_loss" in losses
+    assert 0 <= pck["auc"] <= 1
+
+
+def test_traineval_cli_on_cuda(cuda, tmp_path, monkeypatch):
+    """``cli.traineval`` on the card (no OBMAN_PLATFORM): a train epoch, a
+    resumed evaluation whose val metrics equal the logged ones."""
+    from obman_train_tpu_torch.cli import traineval
+    from obman_train_tpu_torch.utils.logging import parse_log_line
+
+    monkeypatch.delenv("OBMAN_PLATFORM", raising=False)
+    exp = str(tmp_path / "run")
+    argv = ["--train_datasets", "synthetic", "--val_datasets", "synthetic",
+            "--mano_assets", "synthetic", "--synthetic_size", "16", "--image_size", "64",
+            "--train_batch", "8", "--test_batch", "8", "--workers", "2", "--display_freq",
+            "0", "--contact_lambda", "0.167", "--collision_lambda", "0.167",
+            "--atlas_predict_trans", "--atlas_predict_scale", "--exp_id", exp]
+    state, _ = traineval.main(argv + ["--epochs", "1", "--device_augment"])
+    assert next(state.net.parameters()).is_cuda and state.step == 2
+    with open(f"{exp}/logs/val.txt") as f:
+        logged = parse_log_line(f.readlines()[-1])[1]
+    _, val = traineval.main(argv + ["--evaluate", "--resume", exp])
+    for k in ("total_loss", "auc", "epe_mean"):
+        assert abs(val[k] - logged[k]) <= 1e-5 * max(1.0, abs(logged[k])), k
