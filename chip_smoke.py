@@ -6,7 +6,8 @@ Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and nvcc;
 run it from the root of the repository. It imports nothing of JAX. Phases,
 each fatal on failure:
 
-1. device: name, count, and ``nvidia-smi``'s name and power limit;
+1. device: name, count, ``nvidia-smi``'s name and power limit, and the
+   host's PIL, matplotlib and cv2 (the figures need matplotlib or PIL);
 2. build: every CUDA kernel of the port, from the sources in the repo (one
    nvcc per source, all started together), with ptxas registers and spills,
    and beside them the input pipeline's host C++ warp (g++);
@@ -43,13 +44,30 @@ each fatal on failure:
    must start at epoch 2 with the optimizer's update count and moments
    restored; (c) ``--resume --evaluate``, whose val metrics must equal the
    ones logged for the same weights within 1e-5; (d) 1 epoch with
-   ``--device_augment``. Launches per train step inside the loop, finite
-   losses, the run's files; the loop's samples/s (epoch wall clock) and the
-   share of the epoch spent waiting for data.
+   ``--device_augment``; (e) 1 epoch with ``--device_augment --display_freq
+   1``, which must draw every batch's figure and the PCK curve image.
+   Launches per train step and per val forward inside the loop (a display
+   step adds the figure's eval forward), finite losses, the run's files;
+   the loop's samples/s (epoch wall clock) and the share of the epoch
+   spent waiting for data;
+8. slice 5, the serving entry points, at full width: (a) ``DemoModel``
+   (hand_object, the headline config) streaming 128 camera frames of
+   480x640 uint8 on the device, duplicated and flipped into one B=256
+   forward: source frames/s with TF32 off and at PyTorch's default, a
+   per-layer breakdown, the card's preprocessing against the CPU port's
+   (1e-5); (b) phase 7's contact-config experiment reloaded into
+   ``DemoModel``: ``predict_dual`` equal bit for bit to the full HandNet
+   forward on the same preprocessed batch, and no kernel launch on the
+   demo path; (c) ``export_model`` for cuda with a symbolic batch, served at
+   B=1 and B=256 by ``load_exported`` in a fresh process that cannot import
+   the port, against the live model (rtol 1e-5, atol 2e-3); (d) cold start
+   of a live ``DemoModel`` and of an ``ExportedModel``, each in a fresh
+   process; (e) ``video_demo`` over 256 480x640 PNGs at ``--batch 64``, then
+   with ``--attention --render --max_frames 8``, and ``image_demo``.
 
 Output: progress lines, then one JSON line ``{"kernels": [...]}``, one
-JSON line ``{"traineval": {...}}``, the ``nvidia-smi`` line, and as the
-last line
+JSON line ``{"traineval": {...}}``, one JSON line ``{"serving": {...}}``,
+the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 With no GPU, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -57,10 +75,14 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import NoReturn
@@ -162,7 +184,19 @@ def phase_device():
         f"default TF32 matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     log(f"nvidia-smi: {smi_line}")
-    return kind, count, smi_line
+    versions = {}
+    for mod in ("PIL", "matplotlib", "cv2", "numpy", "scipy"):
+        try:
+            versions[mod] = __import__(mod).__version__
+        except ImportError:
+            versions[mod] = None
+    # the figures and the demos' panels: matplotlib where it is installed,
+    # else the PIL raster figures of visualize/raster.py; without PIL the
+    # figure checks of phases 7 and 8 fail
+    versions["figure_renderer"] = ("matplotlib" if versions["matplotlib"]
+                                   else "PIL raster" if versions["PIL"] else None)
+    log(f"host libraries: {json.dumps(versions)}")
+    return kind, count, smi_line, versions
 
 
 def phase_build():
@@ -518,6 +552,10 @@ TRAIN_LOSS_KEYS = {
 # per train step: 2 atlas Chamfer calls + the contact block, two argmin
 # sweeps each; one min-only sweep for min_sqdist_to; one K1 launch
 TRAIN_LAUNCHES = {"raytri_count": 1, "nn_dir_argmin": 6, "nn_dir_min": 1}
+# per eval forward with losses (a val step, or a display step's figure):
+# the contact block (K1, two argmin sweeps), the two Chamfer losses without
+# a gradient (two min sweeps each) and min_sqdist_to (one)
+EVAL_LAUNCHES = {"raytri_count": 1, "nn_dir_argmin": 2, "nn_dir_min": 5}
 
 
 def _train_setup(device, B, S, seed=0):
@@ -923,13 +961,12 @@ def _logged(exp, split):
         return [parse_log_line(line) for line in f if line.strip()]
 
 
-def phase_traineval():
+def phase_traineval(tmp):
     """Slice 4's main path: ``cli.traineval.main()`` in this process (see
-    the module docstring, phase 7). Each epoch pass of the loop is wrapped
-    to count the kernel launches and the wall clock of that pass; returns
-    the launches of run (a) and the measurements."""
-    import tempfile
-
+    the module docstring, phase 7), its runs under ``tmp``. Each epoch pass
+    of the loop is wrapped to count the kernel launches and the wall clock
+    of that pass; returns the launches of run (a), the measurements and
+    the contact-config experiment directory of runs (a)-(c)."""
     import numpy as np
     import torch
 
@@ -977,66 +1014,94 @@ def phase_traineval():
     t_phase = time.perf_counter()
     loop.epoch_pass = counted
     try:
-        with tempfile.TemporaryDirectory() as tmp:
-            exp = os.path.join(tmp, "run")
-            argv = _traineval_argv(exp)
-            # (a) two epochs, counted from 0
-            LAUNCHES.clear()
-            traineval.main(argv + ["--epochs", "2"])
-            torch.cuda.synchronize()
-            launches = dict(LAUNCHES)
-            missing = [f for f in TRAINEVAL_FILES if not os.path.exists(os.path.join(exp, f))]
-            if missing:
-                fail(f"traineval run wrote no {missing}")
-            saved = torch.load(os.path.join(exp, "checkpoint.pth.tar"), map_location="cpu",
-                               weights_only=True)
-            if saved["epoch"] != 2 or saved["step"] != 4:
-                fail(f"traineval checkpoint at epoch {saved['epoch']}, step {saved['step']}; "
-                     "want 2 and 4")
-            # (b) resumed to a third epoch
-            passes_run[:] = ["b", saved["optimizer"]]
-            traineval.main(argv + ["--epochs", "3", "--resume", exp])
-            first_b = next(p for p in passes if p["run"] == "b" and p["train"])
-            if first_b["epoch"] != 2 or first_b["step_count_at_start"] != 4 \
-                    or not first_b["optimizer_restored"]:
-                fail(f"the resumed run started at epoch {first_b['epoch']}, update "
-                     f"{first_b['step_count_at_start']}, optimizer restored "
-                     f"{first_b['optimizer_restored']}; want 2, 4, True")
-            # (c) evaluate the checkpoint: the metrics logged for these weights
-            passes_run[:] = ["c", None]
-            logged = _logged(exp, "val")[-1][1]
-            _, val = traineval.main(argv + ["--resume", exp, "--evaluate"])
-            diffs = {k: abs(val[k] - logged[k]) / max(1.0, abs(logged[k]))
-                     for k in val if k not in ("data_time", "batch_time")}
-            worst = max(diffs.values())
-            log(f"traineval evaluate after resume vs the logged val line: worst "
-                f"|diff|/max(1,|v|) {worst:.3e} over {len(diffs)} metrics (limit 1e-5)")
-            if worst > 1e-5:
-                fail(f"evaluate-after-resume metrics differ from the logged ones: {diffs}")
-            # (d) one epoch with the colour jitter on the device
-            passes_run[:] = ["d", None]
-            exp_d = os.path.join(tmp, "device_augment")
-            traineval.main(_traineval_argv(exp_d) + ["--epochs", "1", "--device_augment"])
-            for e in (exp, exp_d):
-                for split in ("train", "val"):
-                    for epoch, values in _logged(e, split):
-                        bad = [k for k, v in values.items() if not np.isfinite(v)]
-                        if bad:
-                            fail(f"non-finite {split} values at epoch {epoch}: {bad}")
+        exp = os.path.join(tmp, "run")
+        argv = _traineval_argv(exp)
+        # (a) two epochs, counted from 0
+        LAUNCHES.clear()
+        traineval.main(argv + ["--epochs", "2"])
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        missing = [f for f in TRAINEVAL_FILES if not os.path.exists(os.path.join(exp, f))]
+        if missing:
+            fail(f"traineval run wrote no {missing}")
+        saved = torch.load(os.path.join(exp, "checkpoint.pth.tar"), map_location="cpu",
+                           weights_only=True)
+        if saved["epoch"] != 2 or saved["step"] != 4:
+            fail(f"traineval checkpoint at epoch {saved['epoch']}, step {saved['step']}; "
+                 "want 2 and 4")
+        # (b) resumed to a third epoch
+        passes_run[:] = ["b", saved["optimizer"]]
+        traineval.main(argv + ["--epochs", "3", "--resume", exp])
+        first_b = next(p for p in passes if p["run"] == "b" and p["train"])
+        if first_b["epoch"] != 2 or first_b["step_count_at_start"] != 4 \
+                or not first_b["optimizer_restored"]:
+            fail(f"the resumed run started at epoch {first_b['epoch']}, update "
+                 f"{first_b['step_count_at_start']}, optimizer restored "
+                 f"{first_b['optimizer_restored']}; want 2, 4, True")
+        # (c) evaluate the checkpoint: the metrics logged for these weights
+        passes_run[:] = ["c", None]
+        logged = _logged(exp, "val")[-1][1]
+        _, val = traineval.main(argv + ["--resume", exp, "--evaluate"])
+        diffs = {k: abs(val[k] - logged[k]) / max(1.0, abs(logged[k]))
+                 for k in val if k not in ("data_time", "batch_time")}
+        worst = max(diffs.values())
+        log(f"traineval evaluate after resume vs the logged val line: worst "
+            f"|diff|/max(1,|v|) {worst:.3e} over {len(diffs)} metrics (limit 1e-5)")
+        if worst > 1e-5:
+            fail(f"evaluate-after-resume metrics differ from the logged ones: {diffs}")
+        # (d) one epoch with the colour jitter on the device
+        passes_run[:] = ["d", None]
+        exp_d = os.path.join(tmp, "device_augment")
+        traineval.main(_traineval_argv(exp_d) + ["--epochs", "1", "--device_augment"])
+        # (e) the figures: every batch a display step
+        passes_run[:] = ["e", None]
+        exp_e = os.path.join(tmp, "figures")
+        LAUNCHES.clear()
+        traineval.main(_traineval_argv(exp_e) + ["--epochs", "1", "--device_augment",
+                                                 "--display_freq", "1"])
+        torch.cuda.synchronize()
+        figures_run = dict(LAUNCHES)
+        steps = TRAINEVAL_SIZE // B_FULL
+        want_files = [f"images/{split}/epoch_0/img_{i:06d}.png"
+                      for split in ("train", "val") for i in range(steps)]
+        want_files.append("pcks/val/epoch_0.png")
+        missing = [f for f in want_files if not os.path.exists(os.path.join(exp_e, f))]
+        if missing:
+            fail(f"traineval --display_freq 1 drew no {missing}")
+        figures = {"files": want_files, "launches": figures_run,
+                   "bytes": sum(os.path.getsize(os.path.join(exp_e, f)) for f in want_files)}
+        for e in (exp, exp_d, exp_e):
+            for split in ("train", "val"):
+                for epoch, values in _logged(e, split):
+                    bad = [k for k, v in values.items() if not np.isfinite(v)]
+                    if bad:
+                        fail(f"non-finite {split} values at epoch {epoch}: {bad}")
     finally:
         loop.epoch_pass = original
     for p in passes:
+        per_step = {k: v / p["steps"] for k, v in p["launches"].items()}
+        # a display step adds the figure's eval forward to a train step; a
+        # val step's figure reads the val forward
+        want = EVAL_LAUNCHES
         if p["train"]:
-            per_step = {k: v / p["steps"] for k, v in p["launches"].items()}
-            if per_step != TRAIN_LAUNCHES:
-                fail(f"run ({p['run']}) epoch {p['epoch']}: launches per train step inside "
-                     f"the loop {per_step}, want {TRAIN_LAUNCHES}")
+            want = {k: n + (EVAL_LAUNCHES[k] if p["run"] == "e" else 0)
+                    for k, n in TRAIN_LAUNCHES.items()}
+        if per_step != want:
+            fail(f"run ({p['run']}) epoch {p['epoch']}: launches per "
+                 f"{'train step' if p['train'] else 'val forward'} inside the loop "
+                 f"{per_step}, want {want}")
+        if p["run"] == "e" and p["train"]:
+            figures["launches_per_display_train_step"] = per_step
+            figures["figure_forward_launches"] = {
+                k: per_step[k] - TRAIN_LAUNCHES[k] for k in TRAIN_LAUNCHES}
         log(f"traineval run ({p['run']}) epoch {p['epoch']} {'train' if p['train'] else 'val'}:"
             f" {p['steps']} steps, {p['samples_per_s']:.1f} samples/s over {p['wall_s']:.3f} s,"
             f" data wait {p['data_time_s']:.3f} s ({p['data_wait_share']:.1%}); launches "
             f"{p['launches']}")
-    train_passes = [p for p in passes if p["train"]]
+    train_passes = [p for p in passes if p["train"] and p["run"] != "e"]
     result.update(
+        exp=exp,
+        figures=figures,
         launches=launches,
         launches_per_train_step=TRAIN_LAUNCHES,
         passes=passes,
@@ -1051,6 +1116,345 @@ def phase_traineval():
     )
     log(f"traineval phase: {result['seconds']:.1f} s")
     torch.cuda.empty_cache()
+    return result
+
+
+STREAM_SOURCES = 128  # camera frames a streaming step takes; both flips: B=256
+CAMERA_HW = (480, 640)
+COLDSTART_FRAMES = 20
+
+
+def _demo_keys_ok(out, B, label, with_trans=False):
+    want = {"verts": (B, 778, 3), "joints": (B, 21, 3), "objpoints3d": (B, 642, 3)}
+    if with_trans:
+        want.update(objtrans=(B, 3), objscale=(B, 1))
+    if {k: tuple(v.shape) for k, v in out.items()} != want:
+        fail(f"{label}: outputs {({k: tuple(v.shape) for k, v in out.items()})}, want {want}")
+    import numpy as np
+
+    if not all(np.isfinite(np.asarray(v.cpu() if hasattr(v, "cpu") else v)).all()
+               for v in out.values()):
+        fail(f"{label}: non-finite outputs")
+
+
+def _serving_stream(dev):
+    """(a) DemoModel streaming: 128 camera frames duplicated and flipped
+    into one B=256 forward (the JAX bench's ``streaming_dual_flip``)."""
+    import torch
+
+    from obman_train_tpu_torch.config import ExperimentConfig
+    from obman_train_tpu_torch.demo import DemoModel
+    from obman_train_tpu_torch.ops.image import preprocess_frames
+
+    model = DemoModel(config=ExperimentConfig(mano_assets="synthetic"), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cam = torch.randint(0, 256, (STREAM_SOURCES, *CAMERA_HW, 3), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    n = STREAM_SOURCES
+    flip = torch.cat([torch.zeros(n, dtype=torch.bool, device=dev),
+                      torch.ones(n, dtype=torch.bool, device=dev)])
+    sides = torch.cat([torch.ones(n, dtype=torch.int32, device=dev),
+                       torch.zeros(n, dtype=torch.int32, device=dev)])
+
+    def step():
+        return model._infer(model._variables, torch.cat([cam, cam]), sides, flip)
+
+    set_tf32(False)
+    out = step()
+    _demo_keys_ok(out, 2 * n, "streaming forward")
+    # preprocessing on the card against the CPU port, normalised scale
+    few = torch.cat([cam[:2], cam[:2]])
+    ff = torch.tensor([False, False, True, True])
+    size = model.image_size
+    got = preprocess_frames(few.to(torch.float32), size, flip=ff.to(dev)).cpu()
+    want = preprocess_frames(few.cpu().to(torch.float32), size, flip=ff)
+    pre_err = float((got - want).abs().max())
+    log(f"serving (a) preprocessing 480x640 -> {size} on the card vs the CPU port: max abs err "
+        f"{pre_err:.3e} (limit 1e-5)")
+    if pre_err > 1e-5:
+        fail(f"preprocessing on the card differs from the CPU port by {pre_err}")
+    rates, breakdown = {}, {}
+    for label, cudnn_tf32 in (("tf32_off", False), ("pytorch_default", True)):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+        step()
+        torch.cuda.synchronize()
+        windows = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(5):
+                step()
+            torch.cuda.synchronize()
+            windows.append(n * 5 / (time.perf_counter() - t0))
+        rates[label] = sorted(windows)
+        net = model.net
+        with torch.inference_mode():
+            dup = torch.cat([cam, cam])
+            images = preprocess_frames(dup.to(torch.float32), size, flip=flip)
+            nchw = images.permute(0, 3, 1, 2)
+            feats, _ = net.base_net(nchw)
+            stages = {
+                "preprocess": lambda: preprocess_frames(dup.to(torch.float32), size, flip=flip),
+                "encoder": lambda: net.base_net(nchw),
+                "mano_both_sides": lambda: net.mano_branch(feats, sides),
+                "atlas_decoder": lambda: net.atlas_branch.forward_inference(feats),
+                "demo_forward": step,
+            }
+            breakdown[label] = {k: cuda_ms(fn, iters=5) for k, fn in stages.items()}
+    log(f"serving (a) streaming dual flip, {n} camera frames 480x640 uint8 on the device -> "
+        f"B={2 * n}, hand_object, three windows of five: source frames/s {json.dumps(rates)}; "
+        f"ms per step {json.dumps(breakdown)}")
+    set_tf32(False)
+    del model, cam
+    torch.cuda.empty_cache()
+    return {"source_frames": n, "batch": 2 * n, "camera_hw": list(CAMERA_HW),
+            "source_frames_per_s": rates, "breakdown_ms": breakdown,
+            "preprocess_max_abs_err_vs_cpu": pre_err}
+
+
+def _serving_reload(exp, dev):
+    """(b) phase 7's contact-config experiment in DemoModel: the demo path
+    equal to the full HandNet forward bit for bit, and no kernel launch."""
+    import numpy as np
+    import torch
+
+    from obman_train_tpu_torch.demo import DemoModel
+    from obman_train_tpu_torch.models import INFER_SPEC
+    from obman_train_tpu_torch.ops.image import preprocess_frames
+    from obman_train_tpu_torch.ops.kernels import LAUNCHES
+
+    set_tf32(False)
+    model = DemoModel(exp_dir=exp, device=dev)
+    if not model.cfg.model.need_collisions or model.epoch != 3:
+        fail(f"reloaded {exp}: epoch {model.epoch}, contact config "
+             f"{model.cfg.model.need_collisions}; want 3, True")
+    frame = np.random.default_rng(11).integers(0, 256, (*CAMERA_HW, 3)).astype(np.uint8)
+    LAUNCHES.clear()
+    dual = model.predict_dual(frame, hand_side="left")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    frames = torch.randint(0, 256, (B_FULL, *CAMERA_HW, 3), generator=gen, device=dev,
+                           dtype=torch.uint8)
+    sides = (torch.arange(B_FULL, device=dev) % 2).to(torch.int32)
+    flip = torch.arange(B_FULL, device=dev) % 3 == 0
+    batch_out = model._infer(model._variables, frames, sides, flip)
+    torch.cuda.synchronize()
+    demo_launches = dict(LAUNCHES)
+    _demo_keys_ok(dual, 2, "reloaded predict_dual", with_trans=True)
+    _demo_keys_ok(batch_out, B_FULL, "reloaded B=256 demo forward", with_trans=True)
+    if sum(demo_launches.values()):
+        fail(f"the demo path of a contact-config model launched kernels: {demo_launches}")
+    with torch.inference_mode():
+        images = preprocess_frames(torch.from_numpy(np.stack([frame, frame])).to(dev)
+                                   .to(torch.float32), model.image_size,
+                                   flip=torch.tensor([False, True], device=dev))
+        _, full, _ = model.net({"images": images,
+                                "sides": torch.tensor([1, 0], dtype=torch.int32, device=dev)},
+                               INFER_SPEC, no_loss=True, force_hand=True, force_objects=True)
+    torch.cuda.synchronize()
+    full_launches = {k: v for k, v in LAUNCHES.items() if v}
+    if "contact_info" not in full or full_launches.get("raytri_count") != 1:
+        fail(f"the full forward ran no contact block ({full_launches})")
+    unequal = [k for k in dual if not np.array_equal(dual[k], full[k].cpu().numpy())]
+    if unequal:
+        fail(f"predict_dual differs from the full HandNet forward at {unequal}")
+    log(f"serving (b) DemoModel from phase 7's contact experiment (epoch {model.epoch}): "
+        f"predict_dual and a B={B_FULL} demo forward launched {demo_launches or 'no kernel'}; "
+        f"predict_dual equal bit for bit to the full forward (which launched {full_launches})")
+    return model, {"demo_path_launches": demo_launches, "full_forward_launches": full_launches,
+                   "bitwise_equal_keys": sorted(dual)}
+
+
+def _child(code, label, timeout=300):
+    """Run ``code`` in a fresh python process from the repo root; its last
+    stdout line is a JSON object."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=HERE, timeout=timeout)
+    if proc.returncode != 0:
+        fail(f"{label}: child exited {proc.returncode}: {proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["process_s"] = time.perf_counter() - t0
+    return out
+
+
+def _serving_export(model, tmp, dev):
+    """(c) a cuda export with a symbolic batch, served at B=1 and B=256 in a
+    fresh process that cannot import the port, against the live model."""
+    import numpy as np
+    import torch
+
+    from obman_train_tpu_torch.demo.export import export_model
+
+    set_tf32(False)
+    path = os.path.join(tmp, "model.pt2")
+    t0 = time.perf_counter()
+    info = export_model(model, path, platforms=["cuda"])
+    export_s = time.perf_counter() - t0
+    if info["batch"] != "symbolic" or info["platforms"] != ["cuda"]:
+        fail(f"export info {info}")
+    rng = np.random.default_rng(13)
+    size = model.image_size
+    batches = {}
+    for B in (1, B_FULL):
+        batches[B] = (rng.integers(0, 256, (B, size, size, 3)).astype(np.uint8),
+                      (np.arange(B) % 2).astype(np.int32), np.arange(B) % 2 == 1)
+        np.savez(os.path.join(tmp, f"in_{B}.npz"), *batches[B])
+    loader = os.path.join(HERE, "obman_train_tpu_torch", "demo", "export.py")
+    code = "\n".join([
+        "import importlib.util, json, sys, time",
+        "t0 = time.perf_counter()",
+        "import numpy as np, torch",
+        "sys.modules['obman_train_tpu_torch'] = None  # any import of the port raises",
+        "torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False",
+        f"spec = importlib.util.spec_from_file_location('artifact_loader', {loader!r})",
+        "mod = importlib.util.module_from_spec(spec)",
+        "spec.loader.exec_module(mod)",
+        f"serve = mod.load_exported({path!r})",
+        "t_load = time.perf_counter()",
+        "times = {}",
+        f"for B in (1, {B_FULL}):",
+        f"    d = np.load(f'{tmp}/in_{{B}}.npz')",
+        "    args = [torch.from_numpy(d[f'arr_{i}']).cuda() for i in range(3)]",
+        "    out = serve(*args)",
+        "    torch.cuda.synchronize()",
+        "    t = time.perf_counter()",
+        "    for _ in range(3):",
+        "        out = serve(*args)",
+        "    torch.cuda.synchronize()",
+        "    times[B] = (time.perf_counter() - t) / 3 * 1e3",
+        f"    np.savez(f'{tmp}/out_{{B}}.npz', **{{k: v.cpu().numpy() for k, v in out.items()}})",
+        "bad = [m for m in sys.modules if m.startswith('obman_train_tpu')",
+        "       and sys.modules[m] is not None]",
+        "assert not bad, bad",
+        "print(json.dumps({'load_s': t_load - t0, 'serve_ms': times}))",
+    ])
+    child = _child(code, "export round trip")
+    errs = {}
+    for B, (frames, sides, flip) in batches.items():
+        live = model._infer(model._variables, *(torch.from_numpy(a).to(dev)
+                                                for a in (frames, sides, flip)))
+        got = np.load(os.path.join(tmp, f"out_{B}.npz"))
+        if sorted(got.files) != sorted(live):
+            fail(f"exported outputs {sorted(got.files)}, live {sorted(live)}")
+        excess = 0.0
+        errs[B] = {}
+        for k, v in live.items():
+            v = v.cpu().numpy()
+            errs[B][k] = float(np.abs(got[k] - v).max())
+            excess = max(excess, float((np.abs(got[k] - v) - (2e-3 + 1e-5 * np.abs(v))).max()))
+        if excess > 0:
+            fail(f"exported B={B} differs from the live model beyond rtol 1e-5, atol 2e-3: "
+                 f"{errs[B]}")
+    log(f"serving (c) export for cuda, symbolic batch: {info['bytes']} bytes in {export_s:.1f} s; "
+        f"served in a fresh process without the port (load {child['load_s']:.2f} s, "
+        f"ms per call {json.dumps(child['serve_ms'])}); max abs err vs live {json.dumps(errs)} "
+        "(limit rtol 1e-5, atol 2e-3)")
+    return path, {"bytes": info["bytes"], "export_s": export_s, "max_abs_err": errs,
+                  "child": child}
+
+
+def _serving_coldstart(exp, artifact):
+    """(d) a fresh process each for the live DemoModel (built, reloaded) and
+    the ExportedModel: construction, first frame, steady predict calls."""
+    tail = "\n".join([
+        "t_ctor = time.perf_counter()",
+        "frame = np.random.default_rng(0).integers(0, 256, (m.image_size, m.image_size, 3))"
+        ".astype(np.uint8)",
+        "m.predict(frame)",
+        "t_first = time.perf_counter()",
+        f"for _ in range({COLDSTART_FRAMES}):",
+        "    m.predict(frame)",
+        f"t_steady = (time.perf_counter() - t_first) / {COLDSTART_FRAMES}",
+        "print(json.dumps({'construct_s': t_ctor - t0, 'first_frame_s': t_first - t_ctor,",
+        "                  'steady_ms': t_steady * 1e3, 'parts_s': {",
+        "                  'import_torch_cuda_init': t_cuda - t0,",
+        "                  'import_port': t_import - t_cuda, 'build_or_load': t_ctor - t_import}}))",
+    ])
+    # construct_s runs from the first line (imports and the CUDA context
+    # included), as the JAX bench's; parts_s splits it
+    head = "\n".join(["import json, time", "t0 = time.perf_counter()", "import numpy as np",
+                      "import torch", "torch.zeros(1, device='cuda')",
+                      "t_cuda = time.perf_counter()", ""])
+    out = {}
+    for name, imp, make in (
+            ("live", "from obman_train_tpu_torch.demo import DemoModel",
+             f"m = DemoModel(exp_dir={exp!r})"),
+            ("from_export", "from obman_train_tpu_torch.demo.export import ExportedModel",
+             f"m = ExportedModel({artifact!r})")):
+        code = head + "\n".join([imp, "t_import = time.perf_counter()", make, tail])
+        out[name] = _child(code, f"cold start ({name})")
+    log(f"serving (d) cold start, fresh process each, {COLDSTART_FRAMES} steady predict calls "
+        f"(PyTorch's default TF32): {json.dumps(out)}")
+    return out
+
+
+def _serving_clis(exp, tmp):
+    """(e) the demo CLIs on the card, on phase 7's contact experiment."""
+    import numpy as np
+    from PIL import Image
+
+    from obman_train_tpu_torch.cli import image_demo, video_demo
+    from obman_train_tpu_torch.ops.kernels import LAUNCHES
+
+    frames_dir = os.path.join(tmp, "frames")
+    os.makedirs(frames_dir)
+    rng = np.random.default_rng(21)
+    for i in range(256):  # smooth seeded frames: quick to encode and decode
+        small = rng.integers(0, 256, (30, 40, 3)).astype(np.uint8)
+        Image.fromarray(small.repeat(16, 0).repeat(16, 1)).save(
+            os.path.join(frames_dir, f"f{i:04d}.png"), compress_level=1)
+    LAUNCHES.clear()
+    runs = {}
+    for label, extra in (("stream", ["--batch", "64"]),
+                         ("render", ["--batch", "64", "--attention", "--render",
+                                     "--max_frames", "8"])):
+        out_dir = os.path.join(tmp, f"video_{label}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            stats = video_demo.main(["--frames_dir", frames_dir, "--resume", exp,
+                                     "--out_dir", out_dir] + extra)
+        printed = buf.getvalue()
+        log(printed.strip())
+        m = re.search(r"Processed (\d+) frames in ([0-9.]+)s \(([0-9.]+) fps", printed)
+        n_want = 256 if label == "stream" else 8
+        files = sorted(os.listdir(out_dir))
+        kinds = ((".npz",) if label == "stream" else (".npz", ".png.png", "_attention.png"))
+        counts = {k: sum(f.endswith(k) for f in files) for k in kinds}
+        if not m or int(m.group(1)) != n_want or any(c != n_want for c in counts.values()):
+            fail(f"video_demo {label}: printed {printed!r}, files {counts}, want {n_want} each")
+        runs[label] = {"frames": int(m.group(1)), "printed_fps": float(m.group(3)),
+                       "fps": stats["fps"], "files": counts}
+    img_out = os.path.join(tmp, "image_demo.png")
+    image_demo.main(["--image", os.path.join(frames_dir, "f0000.png"), "--resume", exp,
+                     "--output", img_out])
+    if not os.path.getsize(img_out):
+        fail("image_demo wrote no figure")
+    runs["image_demo_bytes"] = os.path.getsize(img_out)
+    if sum(LAUNCHES.values()):
+        fail(f"the demo CLIs launched kernels: {dict(LAUNCHES)}")
+    log(f"serving (e) video_demo on 256 480x640 PNGs at --batch 64 (contact experiment): "
+        f"{json.dumps(runs)}")
+    return runs
+
+
+def phase_serving(exp, tmp):
+    """Slice 5's serving entry points (see the module docstring, phase 8)."""
+    import torch
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    result = {"stream": _serving_stream(dev)}
+    model, result["reload"] = _serving_reload(exp, dev)
+    artifact, result["export"] = _serving_export(model, tmp, dev)
+    del model
+    torch.cuda.empty_cache()
+    result["cold_start"] = _serving_coldstart(exp, artifact)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True  # the CLIs as a user runs them
+    result["demo_clis"] = _serving_clis(exp, tmp)
+    set_tf32(False)
+    result["seconds"] = time.perf_counter() - t0
+    log(f"serving phase: {result['seconds']:.1f} s")
     return result
 
 
@@ -1074,7 +1478,7 @@ def _contact_kw(net):
 
 def main() -> None:
     t0 = time.perf_counter()
-    kind, count, smi_line = phase_device()
+    kind, count, smi_line, versions = phase_device()
     phase_build()
     entry = phase_kernels()
     nn_entries = phase_nn_kernels()
@@ -1082,10 +1486,12 @@ def main() -> None:
     large = phase_large_cloud()
     phase_slice(entry)
     train = phase_train()
-    te = phase_traineval()
-    log("traineval loop vs bare step, samples/s at B=256: loop "
-        f"{json.dumps(te['train_samples_per_s'])} (epoch wall clock, TF32 "
-        f"{json.dumps(te['tf32'])}), bare step {json.dumps(train['samples_per_s'])}")
+    with tempfile.TemporaryDirectory() as tmp:
+        te = phase_traineval(tmp)
+        log("traineval loop vs bare step, samples/s at B=256: loop "
+            f"{json.dumps(te['train_samples_per_s'])} (epoch wall clock, TF32 "
+            f"{json.dumps(te['tf32'])}), bare step {json.dumps(train['samples_per_s'])}")
+        serving = phase_serving(te["exp"], tmp)
     # launches: K1-K3 from run (a) of the training entry point, the main path
     # of this slice (with one train step's beside them); the large-cloud
     # rows', from the large-cloud Chamfer path
@@ -1095,19 +1501,25 @@ def main() -> None:
     for e in nn_entries:
         if e["path"] == "train_step":
             e["path"] = "traineval"
+    figure = te["figures"]["figure_forward_launches"]
     for e in (entry, *nn_entries):
         counter = e.get("counter", e["name"])
         e["launches"] = paths[e["path"]][counter]
         if e["path"] == "traineval":
             e["launches_one_train_step"] = paths["train_step"][counter]
+            e["launches_figure_forward"] = figure.get(counter, 0)
+            e["launches_figures_run"] = te["figures"]["launches"].get(counter, 0)
+        e["launches_demo_path"] = serving["reload"]["demo_path_launches"].get(counter, 0)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [entry, *nn_entries]}), flush=True)
     print(json.dumps({"traineval": {
         **{k: te[k] for k in ("synthetic_size", "batch", "tf32", "cpu_count", "workers",
                               "launches", "launches_per_train_step", "train_samples_per_s",
-                              "data_wait_share", "evaluate_worst_rel_diff", "seconds")},
+                              "data_wait_share", "evaluate_worst_rel_diff", "figures",
+                              "seconds")},
         "bare_step_samples_per_s": train["samples_per_s"],
         "passes": te["passes"]}}), flush=True)
+    print(json.dumps({"serving": {"host_libraries": versions, **serving}}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -11,6 +11,8 @@ from obman_train_tpu_torch.assets.mano_assets import (
     PALM_VERT_IDS,
     TIPS,
     ManoAssets,
+    load_mano_assets,
+    load_mano_pkl,
     synthetic_mano_assets,
 )
 
@@ -23,6 +25,8 @@ __all__ = [
     "ManoAssets",
     "icosphere",
     "load_contact_zones",
+    "load_mano_assets",
+    "load_mano_pkl",
     "synthetic_mano_assets",
     "tips_mask",
     "zone_masks",

@@ -1,15 +1,23 @@
-"""MANO model tables and the synthetic hand used when the MANO pkl files
-are absent (they are user-supplied, reference README.md:48-58).
+"""MANO model tables: the official pkl files, their ``.npz`` cache, and the
+synthetic hand used when the pkl files are absent (they are user-supplied,
+reference README.md:48-58).
 
-:func:`synthetic_mano_assets` draws the same numbers as the JAX package's
-``assets/mano_assets.py:191-249`` for the same seed: real MANO topology and
-rest vertices from the contact-zones asset, the real kinematic tree, random
+The official ``MANO_{LEFT,RIGHT}.pkl`` hold chumpy arrays and scipy sparse
+matrices (reference manobranch.py:92-105 reads them through ``manopth``);
+:func:`load_mano_pkl` unpickles them without chumpy installed, into plain
+float32/int32 numpy, as the JAX package's ``assets/mano_assets.py:87-188``
+does. :func:`synthetic_mano_assets` draws the same numbers as the JAX
+package's (:191-249) for the same seed: real MANO topology and rest
+vertices from the contact-zones asset, the real kinematic tree, random
 orthonormal PCA rows and small random blendshapes.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+import os
+import pickle
+from dataclasses import dataclass, fields
 
 import numpy as np
 
@@ -80,6 +88,96 @@ class ManoAssets:
         if self.faces.ndim != 2 or self.faces.shape[1] != 3:
             raise ValueError(f"MANO faces: shape {self.faces.shape}, want (F, 3)")
         return self
+
+    def save_npz(self, path: str) -> None:
+        np.savez(path, side=np.array(self.side),
+                 **{f.name: getattr(self, f.name) for f in fields(self) if f.name != "side"})
+
+    @classmethod
+    def load_npz(cls, path: str) -> "ManoAssets":
+        data = np.load(path, allow_pickle=False)
+        kw = {k: data[k] for k in data.files if k != "side"}
+        side = str(data["side"]) if "side" in data.files else "right"
+        return cls(side=side, **kw).validate()
+
+
+class _ChumpyShim:
+    """Stands in for ``chumpy.Ch`` objects while unpickling: keeps only
+    their numpy payload."""
+
+    def __init__(self, *args, **kwargs):
+        self.__dict__ = {}
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+
+    @property
+    def r(self) -> np.ndarray:
+        for key in ("x", "a", "v"):
+            if isinstance(self.__dict__.get(key), np.ndarray):
+                return self.__dict__[key]
+        raise ValueError("chumpy shim: no numpy payload found")
+
+
+class _ManoUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module.startswith("chumpy"):
+            return _ChumpyShim
+        return super().find_class(module, name)
+
+
+def _to_np(x) -> np.ndarray:
+    if isinstance(x, _ChumpyShim):
+        x = x.r
+    if hasattr(x, "toarray"):  # scipy sparse
+        x = x.toarray()
+    return np.asarray(x)
+
+
+def load_mano_pkl(path: str, side: str) -> ManoAssets:
+    """An official MANO pkl as :class:`ManoAssets`."""
+    with open(path, "rb") as f:
+        data = _ManoUnpickler(f, encoding="latin1").load()
+    parents = _to_np(data["kintree_table"]).astype(np.int64)[0].astype(np.int32)
+    parents[0] = -1
+    return ManoAssets(
+        v_template=_to_np(data["v_template"]).astype(np.float32),
+        shapedirs=_to_np(data["shapedirs"]).astype(np.float32),
+        posedirs=_to_np(data["posedirs"]).astype(np.float32),
+        J_regressor=_to_np(data["J_regressor"]).astype(np.float32),
+        weights=_to_np(data["weights"]).astype(np.float32),
+        hands_components=_to_np(data["hands_components"]).astype(np.float32),
+        hands_mean=_to_np(data["hands_mean"]).astype(np.float32),
+        faces=_to_np(data["f"]).astype(np.int32),
+        parents=parents,
+        side=side,
+    ).validate()
+
+
+def load_mano_assets(mano_root: str, side: str, fix_left_shapedirs: bool = False) -> ManoAssets:
+    """One side from ``mano_root``, its ``.npz`` cache before its pkl.
+
+    ``fix_left_shapedirs`` negates the x row of the left hand's shape
+    blendshapes (the official MANO_LEFT pkl ships them un-mirrored; newer
+    manopth versions apply this fix). Off by default, as the reference was
+    trained without it.
+    """
+    base = f"MANO_{side.upper()}"
+    npz = os.path.join(mano_root, base + ".npz")
+    if os.path.exists(npz):
+        assets = ManoAssets.load_npz(npz)
+    else:
+        pkl = os.path.join(mano_root, base + ".pkl")
+        if not os.path.exists(pkl):
+            raise FileNotFoundError(
+                f"No MANO assets for side={side} under {mano_root} "
+                f"(expected {base}.npz or {base}.pkl)")
+        assets = load_mano_pkl(pkl, side)
+    if fix_left_shapedirs and side == "left":
+        shapedirs = assets.shapedirs.copy()
+        shapedirs[:, 0, :] *= -1
+        assets = dataclasses.replace(assets, shapedirs=shapedirs)
+    return assets
 
 
 def synthetic_mano_assets(side: str = "right", seed: int = 0) -> ManoAssets:

@@ -302,10 +302,6 @@ def check_ported(args) -> None:
                                            "item 3.1)"),
         (not args.atlas_mesh, "--no_atlas_mesh: the random-cloud AtlasNet decoder "
                               "slice (ROADMAP queue 1, item 3.1)"),
-        (args.mano_assets != "synthetic", f"--mano_assets {args.mano_assets}: real "
-                                          "MANO files are the DemoModel slice "
-                                          "(ROADMAP queue 1, item 4); pass "
-                                          "--mano_assets synthetic"),
         (args.evaluate and args.save_results and not args.no_simulate,
          "simulation after --evaluate --save_results is the host-tooling slice "
          "(ROADMAP queue 1, item 9); pass --no_simulate"),
@@ -316,14 +312,15 @@ def check_ported(args) -> None:
 
 
 def load_mano_pair(mano_assets_dir: str, fix_left_shapedirs: bool = False):
-    """(right, left) MANO assets; only the synthetic model is ported."""
-    from obman_train_tpu_torch.assets import synthetic_mano_assets
+    """(right, left) MANO assets: the synthetic model for ``"synthetic"``,
+    else ``MANO_{RIGHT,LEFT}.{npz,pkl}`` from the directory (the JAX CLI's
+    :297-316)."""
+    from obman_train_tpu_torch.assets import load_mano_assets, synthetic_mano_assets
 
-    if mano_assets_dir != "synthetic":
-        raise NotImplementedError(
-            f"MANO assets {mano_assets_dir!r}: loading real MANO files is the "
-            "DemoModel slice of the port; use 'synthetic'")
-    return synthetic_mano_assets("right"), synthetic_mano_assets("left")
+    if mano_assets_dir == "synthetic":
+        return synthetic_mano_assets("right"), synthetic_mano_assets("left")
+    return (load_mano_assets(mano_assets_dir, "right"),
+            load_mano_assets(mano_assets_dir, "left", fix_left_shapedirs=fix_left_shapedirs))
 
 
 def _write_opt_txt(exp_id: str, argv) -> None:

@@ -140,12 +140,18 @@ class HandNet(nn.Module):
         force_hand: bool = False,
         regul_scale=1.0,
         contains: Optional[ContainsFn] = None,
+        contact: bool = True,
     ) -> Tuple[Optional[torch.Tensor], Dict[str, Any], Dict[str, Any]]:
         """Returns ``(total_loss, results, losses)`` like the JAX
         ``HandNet.__call__`` with ``train=False``. ``regul_scale``
         multiplies the edge and Laplacian weights (the per-epoch regul
         decay). ``contains`` replaces the contact block's exterior test (a
-        test hook; the default is the CUDA kernel path)."""
+        test hook; the default is the CUDA kernel path). ``contact=False``
+        with ``no_loss=True`` leaves out the contact block: the demo path
+        reads none of its outputs, and the JAX package's jitted demo program
+        drops it as dead code (demo/inference.py:95-99)."""
+        if not contact and not no_loss:
+            raise ValueError("contact=False needs no_loss=True: the losses read the block")
         if self.training:
             raise NotImplementedError(
                 "training mode (unfrozen BN, dropout) is not ported; call "
@@ -260,7 +266,7 @@ class HandNet(nn.Module):
             )
             atlas_results["objfaces"] = self.ico_faces_np
 
-            if cfg.need_collisions and mano_results is not None:
+            if contact and cfg.need_collisions and mano_results is not None:
                 c = cfg.contact
                 attr_loss, penetr_loss, contact_infos, contact_metrics = compute_contact_loss(
                     mano_results["verts"],

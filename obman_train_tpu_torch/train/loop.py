@@ -3,17 +3,23 @@
 mano_train/netscripts/epochpass3d.py:17-215 and traineval.py:281-404).
 
 Per batch: the train or eval step, the loss meters, PCK/EPE/AUC over the
-(0, 50, 20) thresholds on ``EVAL_JOINT_IDXS``; per epoch: text/jsonl logs
-with the lr actually applied and the regul scale, the PCK pickle, the
-checkpoint, best by val AUC (else by minimum ``total_loss``), and the regul
-decay at ``epoch % regul_decay_step == 0``.
+(0, 50, 20) thresholds on ``EVAL_JOINT_IDXS``, and every ``display_freq``
+batches a figure (``visualize/displaymano.visualize_batch``): on a train
+pass from an eval forward on the weights before that batch's update (the
+train step returns only the joints), on a val pass from the val forward;
+in the contact configuration it draws the attraction and repulsion
+segments. Per epoch: text/jsonl logs with the lr actually applied and the
+regul scale, the PCK curve image and pickle, the checkpoint, best by val
+AUC (else by minimum ``total_loss``), and the regul decay at ``epoch %
+regul_decay_step == 0``.
 
 Host-device overlap: the host reads a step's results one batch behind the
 step it has just queued, so the GPU is not idle while the host reads
 losses. At dispatch, a step's loss scalars are stacked into one tensor and
 copied with the predicted joints into pinned host memory without blocking
 (one device-to-host copy of the losses, not one ``.item()`` per key); the
-host waits on that copy's event only one batch later.
+host waits on that copy's event only one batch later. A figure's tensors
+(its first ``FIGURE_SAMPLES`` rows) travel in the same copy.
 
 Two departures from the JAX loop keep a resumed run on the path of one
 that never stopped: the train loader is set to the epoch being run (the
@@ -32,11 +38,13 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from obman_train_tpu_torch.assets.contact_zones import DATA_PATH
 from obman_train_tpu_torch.config import ExperimentConfig
 from obman_train_tpu_torch.data.loader import derive_spec
 from obman_train_tpu_torch.train.checkpoint import save_checkpoint
 from obman_train_tpu_torch.train.metrics import AverageMeters, EvalUtil
 from obman_train_tpu_torch.train.steps import (
+    EVAL_KEYS,
     HOST_KEYS,
     TrainState,
     lr_schedule,
@@ -46,6 +54,8 @@ from obman_train_tpu_torch.train.steps import (
 from obman_train_tpu_torch.utils.logging import Monitor
 
 EVAL_JOINT_IDXS = list(range(21))  # joints used for evaluation (epochpass3d.py:37)
+FIGURE_KEYS = EVAL_KEYS + ("contact_info",)
+FIGURE_SAMPLES = 5  # the samples visualize_batch draws (its max_samples)
 
 
 def _to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -66,11 +76,17 @@ def _to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
 class _HostCopy:
     """Device-to-host copies of a step's outputs, started at dispatch and
     read one step later: the loss scalars stacked into one tensor (one
-    copy), and the named result tensors."""
+    copy), the named result tensors, and a figure's results (nested dicts
+    flattened to ``figure/<key>[/<key>]`` names)."""
 
-    def __init__(self, losses: Dict, results: Dict[str, torch.Tensor]):
+    def __init__(self, losses: Dict, results: Dict[str, torch.Tensor],
+                 figure: Optional[Dict] = None):
         self.loss_keys = [k for k, v in losses.items() if v is not None]
         tensors = dict(results)
+        for k, v in (figure or {}).items():
+            for kk, vv in (v.items() if isinstance(v, dict) else [(None, v)]):
+                tensors["/".join(["figure", k] + ([kk] if kk else []))] = vv[:FIGURE_SAMPLES]
+        self.has_figure = figure is not None
         if self.loss_keys:
             tensors["__losses__"] = torch.stack(
                 [losses[k].detach().reshape(()).to(torch.float32) for k in self.loss_keys])
@@ -89,7 +105,8 @@ class _HostCopy:
             self.event.record()
 
     def get(self):
-        """``(losses as floats, results as numpy)``, waiting for the copies."""
+        """``(losses as floats, results as numpy, figure results as numpy
+        or None)``, waiting for the copies."""
         if self.event is not None:
             self.event.synchronize()
         host = dict(self.host)
@@ -97,7 +114,32 @@ class _HostCopy:
         losses = {}
         if packed is not None:
             losses = dict(zip(self.loss_keys, packed.tolist()))
-        return losses, {k: v.numpy() for k, v in host.items()}
+        results, figure = {}, {} if self.has_figure else None
+        for name, t in host.items():
+            parts = name.split("/")
+            if parts[0] != "figure":
+                results[name] = t.numpy()
+            elif len(parts) == 2:
+                figure[parts[1]] = t.numpy()
+            else:
+                figure.setdefault(parts[1], {})[parts[2]] = t.numpy()
+        return losses, results, figure
+
+
+def _draw_figure(display_dir: str, batch_idx: int, batch: Dict, figure: Dict,
+                 obj_faces: np.ndarray) -> None:
+    """``img_<batch_idx>.png`` in ``display_dir``; host-side drawing, so a
+    figure that fails to draw is reported and the run goes on."""
+    try:
+        from obman_train_tpu_torch.visualize.displaymano import visualize_batch
+
+        os.makedirs(display_dir, exist_ok=True)
+        visualize_batch(
+            os.path.join(display_dir, f"img_{batch_idx:06d}.png"),
+            {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}, figure,
+            np.load(DATA_PATH)["faces"].astype(np.int32), obj_faces=obj_faces)
+    except Exception as e:  # matplotlib missing or a drawing error
+        print(f"visualize_batch skipped: {type(e).__name__}: {e}")
 
 
 def epoch_pass(
@@ -108,32 +150,40 @@ def epoch_pass(
     save_results_dir: Optional[str] = None,
     accum_steps: int = 1,
     train_bn: bool = False,
+    display_dir: Optional[str] = None,
+    display_freq: int = 500,
 ):
     """One pass over ``loader``; returns ``(state, avg_meters, pck_info)``.
-    Steps are built once per :class:`BatchSpec` met in the pass."""
+    Steps are built once per :class:`BatchSpec` met in the pass. With a
+    ``display_dir``, every ``display_freq``-th batch (0 disables) draws a
+    figure there."""
     net = state.net
     device = next(net.parameters()).device
     avg_meters = AverageMeters()
     time_meters = AverageMeters()
     evaluator = EvalUtil()
-    steps = {}
+    train_steps, eval_steps = {}, {}
 
-    def step_for(spec):
-        if spec not in steps:
-            if train:
-                steps[spec] = make_train_step(
-                    net, state.optimizer, spec, train_bn=train_bn,
-                    accum_steps=accum_steps, device=device,
-                    return_joints=spec.has_joints3d)
-            else:
-                steps[spec] = make_eval_step(net, spec, device=device)
-        return steps[spec]
+    def train_step_for(spec):
+        if spec not in train_steps:
+            train_steps[spec] = make_train_step(
+                net, state.optimizer, spec, train_bn=train_bn,
+                accum_steps=accum_steps, device=device,
+                return_joints=spec.has_joints3d)
+        return train_steps[spec]
+
+    def eval_step_for(spec):
+        if spec not in eval_steps:
+            eval_steps[spec] = make_eval_step(net, spec, device=device, keys=FIGURE_KEYS)
+        return eval_steps[spec]
 
     def process_host(pending):
         """Host work of a finished step: loss meters (this waits for the
-        step's copies), the evaluator feed, the result dumps."""
+        step's copies), the evaluator feed, the figure, the result dumps."""
         batch_idx, batch, root, copy = pending
-        losses, results = copy.get()
+        losses, results, figure = copy.get()
+        if figure is not None:
+            _draw_figure(display_dir, batch_idx, batch, figure, net.ico_faces_np)
         for key, v in losses.items():
             avg_meters.add_loss_value(key, v)
             if v > 1e5 and key == "total_loss":
@@ -160,17 +210,29 @@ def epoch_pass(
         root = batch.get("root", "wrist")
         device_batch = _to_device(batch, device)
         spec = derive_spec(device_batch, root=root)
+        display_step = display_dir is not None and display_freq > 0 \
+            and batch_idx % display_freq == 0
+        figure = None
         if train:
-            out = step_for(spec)(state, device_batch)
+            if display_step:
+                # before the update: the figure shows the weights this
+                # batch's loss was computed with
+                _, figure = eval_step_for(spec)(device_batch)
+            out = train_step_for(spec)(state, device_batch)
             state, losses = out[0], out[1]
             results = {"joints": out[2]} if len(out) == 3 else {}
         else:
-            losses, results = step_for(spec)(device_batch)
+            losses, results = eval_step_for(spec)(device_batch)
+            if display_step:
+                figure = results
         # copy back only what process_host reads: the losses, the joints,
-        # and the whole results only when they are dumped
+        # the figure's rows, and the whole results (without contact_info,
+        # as the JAX eval step returns them) only when they are dumped
         if train or save_results_dir is None:
             results = {k: v for k, v in results.items() if k == "joints"}
-        copy = _HostCopy(losses, results)
+        else:
+            results = {k: v for k, v in results.items() if k in EVAL_KEYS}
+        copy = _HostCopy(losses, results, figure)
         if pending is not None:
             process_host(pending)
         pending = (batch_idx, batch, root, copy)
@@ -197,11 +259,24 @@ def epoch_pass(
     return state, avg_meters, pck_info
 
 
-def _save_pck_artifacts(cfg: ExperimentConfig, epoch: int, pck_info: Dict) -> str:
-    """The per-epoch PCK pickle (epochpass3d.py:176-209); the curve image
-    waits for the port of ``visualize/``."""
+def _save_pck_artifacts(cfg: ExperimentConfig, epoch: int, pck_info: Dict,
+                        val_loader) -> str:
+    """The per-epoch PCK curve image and pickle (epochpass3d.py:176-209),
+    the image with the literature curves of the StereoHands protocols when
+    that dataset is evaluated."""
     pck_dir = os.path.join(cfg.exp_id, "pcks", "val")
     os.makedirs(pck_dir, exist_ok=True)
+    overlay = None
+    metas = getattr(val_loader, "metas", None)
+    if metas and metas[0].get("dataset") == "stereohands":
+        overlay = "stereo_test" if metas[0].get("split") == "test" else "stereo_all"
+    try:
+        from obman_train_tpu_torch.visualize.displaymano import save_pck_img
+
+        save_pck_img(pck_info["thres"], pck_info["pck_curve"], pck_info["auc"],
+                     os.path.join(pck_dir, f"epoch_{epoch}.png"), overlay=overlay)
+    except Exception as e:  # matplotlib missing or a drawing error
+        print(f"pck plot skipped: {type(e).__name__}: {e}")
     path = os.path.join(pck_dir, f"epoch_{epoch}.pkl")
     with open(path, "wb") as f:
         pickle.dump(pck_info, f)
@@ -240,12 +315,15 @@ def fit(
         if cfg.host_folder else None
     )
     monitor = Monitor(cfg.exp_id, hosting_folder=hosting)
-    if cfg.display_freq > 0 and cfg.epoch_display_freq:
-        print("display_freq > 0: the qualitative figures (visualize/displaymano) "
-              "are not ported yet, so none are drawn")
     best_score = None
 
     for epoch in range(start_epoch, cfg.train.epochs):
+        display = bool(cfg.epoch_display_freq) and epoch % cfg.epoch_display_freq == 0
+
+        def display_dir(split, epoch=epoch):
+            return os.path.join(cfg.exp_id, "images", split, f"epoch_{epoch}") \
+                if display else None
+
         if not cfg.evaluate:
             train_loader.set_epoch(epoch)
 
@@ -253,7 +331,8 @@ def fit(
                 return epoch_pass(
                     train_loader, state, epoch, train=True,
                     accum_steps=cfg.train.grad_accum,
-                    train_bn=not cfg.train.freeze_batchnorm)
+                    train_bn=not cfg.train.freeze_batchnorm,
+                    display_dir=display_dir("train"), display_freq=cfg.display_freq)
 
             if profile_dir and epoch == start_epoch:
                 state, train_meters, train_pck = _profiled(profile_dir, epoch, run_train)
@@ -273,14 +352,15 @@ def fit(
         if cfg.save_results:
             save_dir = os.path.join(cfg.exp_id, "save_results", "val", f"epoch_{epoch}")
         state, val_meters, pck_info = epoch_pass(
-            val_loader, state, epoch, train=False, save_results_dir=save_dir)
+            val_loader, state, epoch, train=False, save_results_dir=save_dir,
+            display_dir=display_dir("val"), display_freq=cfg.display_freq)
         val_dict = val_meters.averages()
         for k in ("auc", "epe_mean", "epe_median"):
             if k in pck_info:
                 val_dict[k] = pck_info[k]
         monitor.log_val(epoch + 1, val_dict)
         if pck_info:
-            _save_pck_artifacts(cfg, epoch, pck_info)
+            _save_pck_artifacts(cfg, epoch, pck_info, val_loader)
         monitor.save_metrics()
         monitor.plot_metrics()
 

@@ -30,8 +30,8 @@ from obman_train_tpu_torch.config import TrainConfig
 from obman_train_tpu_torch.device import DeviceLike, resolve_device
 from obman_train_tpu_torch.models.handnet import BatchSpec, HandNet
 
-_EVAL_KEYS = ("verts", "joints", "objpoints3d", "objtrans", "objscale",
-              "joints2d", "center3d")
+EVAL_KEYS = ("verts", "joints", "objpoints3d", "objtrans", "objscale",
+             "joints2d", "center3d")
 
 
 @dataclass
@@ -223,16 +223,19 @@ def make_train_step(
 
 
 def make_eval_step(
-    net: HandNet, spec: BatchSpec, no_loss: bool = False, device: DeviceLike = None
+    net: HandNet, spec: BatchSpec, no_loss: bool = False, device: DeviceLike = None,
+    keys: Tuple[str, ...] = EVAL_KEYS,
 ) -> Callable[[Dict], Tuple[Dict, Dict]]:
     """``eval(batch) -> (losses, out)`` without gradients (JAX :391-417);
-    ``out`` holds the predictions the evaluators read."""
+    ``out`` holds the results named in ``keys`` that the forward computes:
+    by default the predictions the evaluators read; the epoch loop's
+    figures also take ``contact_info``."""
     dev = _net_device(net, device)
 
     def eval_fn(batch: Dict):
         net.eval()
         with torch.no_grad():
             _, results, losses = net(_to_device(batch, dev), spec, no_loss=no_loss)
-        return losses, {k: results[k] for k in _EVAL_KEYS if k in results}
+        return losses, {k: results[k] for k in keys if k in results}
 
     return eval_fn

@@ -279,3 +279,89 @@ def test_traineval_cli_on_cuda(cuda, tmp_path, monkeypatch):
     _, val = traineval.main(argv + ["--evaluate", "--resume", exp])
     for k in ("total_loss", "auc", "epe_mean"):
         assert abs(val[k] - logged[k]) <= 1e-5 * max(1.0, abs(logged[k])), k
+
+
+def _demo_config(size=64):
+    from obman_train_tpu_torch.config import ExperimentConfig
+
+    return ExperimentConfig(mano_assets="synthetic",
+                            model=CONTACT.replace(image_size=size))
+
+
+def test_demo_model_on_cuda_matches_cpu_port_without_kernels(cuda):
+    """DemoModel (contact config, seeded weights) on the card against the
+    CPU port, TF32 off: the same keys, values to the slice test's bounds,
+    and not one kernel launch on the demo path."""
+    from obman_train_tpu_torch.demo import DemoModel
+
+    frame = np.random.default_rng(0).integers(0, 256, (96, 128, 3)).astype(np.uint8)
+    gpu_model = DemoModel(config=_demo_config(), device=cuda)
+    LAUNCHES.clear()
+    gpu = gpu_model.predict_dual(frame)
+    single = gpu_model.predict(frame, hand_side="right", flip=True)
+    attention = gpu_model.attention_maps(frame[None])
+    torch.cuda.synchronize()
+    assert sum(LAUNCHES.values()) == 0, dict(LAUNCHES)
+    cpu_model = DemoModel(config=_demo_config(), device="cpu")
+    cpu = cpu_model.predict_dual(frame)
+    assert sorted(gpu) == sorted(cpu) == ["joints", "objpoints3d", "objscale", "objtrans",
+                                          "verts"]
+    for key, atol in (("verts", 1e-2), ("joints", 1e-2), ("objpoints3d", 2e-2),
+                      ("objtrans", 2e-2), ("objscale", 1e-4)):
+        np.testing.assert_allclose(gpu[key], cpu[key], rtol=0, atol=atol, err_msg=key)
+    np.testing.assert_allclose(single["verts"][0], cpu_model.predict(
+        frame, hand_side="right", flip=True)["verts"][0], rtol=0, atol=1e-2)
+    np.testing.assert_allclose(attention, cpu_model.attention_maps(frame[None]),
+                               rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("H,W,size", [(480, 640, 256), (100, 140, 64), (48, 64, 128)])
+def test_preprocessing_on_cuda_matches_cpu(cuda, H, W, size):
+    from obman_train_tpu_torch.ops import image
+
+    rng = np.random.default_rng(H)
+    frames = torch.from_numpy(rng.integers(0, 256, (3, H, W, 3)).astype(np.uint8))
+    flip = torch.tensor([True, False, True])
+    cpu = image.preprocess_frames(frames.to(torch.float32), size, flip=flip, bgr=True)
+    gpu = image.preprocess_frames(frames.to(cuda).to(torch.float32), size, flip=flip.to(cuda),
+                                  bgr=True)
+    torch.testing.assert_close(gpu.cpu(), cpu, rtol=0, atol=1e-5)
+    imgs = torch.from_numpy(rng.random((2, 80, 72, 3)).astype(np.float32))
+    aff = torch.tensor([[[0.8, 0.2, -5.0], [-0.2, 0.8, 3.0], [0, 0, 1]]] * 2,
+                       dtype=torch.float32)
+    torch.testing.assert_close(image.affine_warp(imgs.to(cuda), aff.to(cuda), 64).cpu(),
+                               image.affine_warp(imgs, aff, 64), rtol=0, atol=1e-4)
+
+
+def test_export_round_trip_on_cuda(cuda, tmp_path):
+    """A symbolic-batch artifact for cuda and cpu: the cuda program serves
+    batches of 1 and 3 on the card like the live model (rtol 1e-5, atol
+    2e-3), the cpu program serves CPU inputs, and no kernel launches."""
+    from obman_train_tpu_torch.demo import DemoModel
+    from obman_train_tpu_torch.demo.export import ExportedModel, export_model, load_exported
+
+    model = DemoModel(config=_demo_config(), device=cuda)
+    path = str(tmp_path / "model.pt2")
+    info = export_model(model, path, platforms=["gpu", "cpu"])
+    assert info["platforms"] == ["cuda", "cpu"] and info["batch"] == "symbolic"
+    serve = load_exported(path)
+    rng = np.random.default_rng(1)
+    LAUNCHES.clear()
+    for B in (1, 3):
+        frames = torch.from_numpy(rng.integers(0, 256, (B, 64, 64, 3)).astype(np.uint8))
+        sides = torch.from_numpy((np.arange(B) % 2).astype(np.int32))
+        flip = torch.from_numpy(np.arange(B) % 2 == 0)
+        live = model._infer(model._variables, frames.to(cuda), sides.to(cuda), flip.to(cuda))
+        out = serve(frames.to(cuda), sides.to(cuda), flip.to(cuda))
+        assert sorted(out) == sorted(live) and out["verts"].is_cuda
+        for k in live:
+            torch.testing.assert_close(out[k], live[k], rtol=1e-5, atol=2e-3, msg=k)
+        on_cpu = serve(frames, sides, flip)
+        assert on_cpu["verts"].device.type == "cpu"
+    torch.cuda.synchronize()
+    assert sum(LAUNCHES.values()) == 0
+    frame = rng.integers(0, 256, (64, 64, 3)).astype(np.uint8)
+    served = ExportedModel(path)
+    assert served.device.type == "cuda"
+    np.testing.assert_allclose(served.predict_dual(frame)["verts"],
+                               model.predict_dual(frame)["verts"], rtol=1e-5, atol=2e-3)

@@ -81,5 +81,13 @@ def test_walk_covers_every_slice_module():
         "obman_train_tpu_torch.train.checkpoint", "obman_train_tpu_torch.train.loop",
         "obman_train_tpu_torch.utils", "obman_train_tpu_torch.utils.logging",
         "obman_train_tpu_torch.cli", "obman_train_tpu_torch.cli.traineval",
+        # the serving entry points and the figures
+        "obman_train_tpu_torch.demo", "obman_train_tpu_torch.demo.inference",
+        "obman_train_tpu_torch.demo.export", "obman_train_tpu_torch.demo.preprocess",
+        "obman_train_tpu_torch.demo.attention", "obman_train_tpu_torch.cli.image_demo",
+        "obman_train_tpu_torch.cli.video_demo", "obman_train_tpu_torch.cli.export",
+        "obman_train_tpu_torch.visualize", "obman_train_tpu_torch.visualize.displaymano",
+        "obman_train_tpu_torch.visualize.viz2d", "obman_train_tpu_torch.visualize.viz3d",
+        "obman_train_tpu_torch.visualize.html_mesh",
     ):
         assert name in walked, name

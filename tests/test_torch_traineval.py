@@ -4,7 +4,7 @@
 - every JAX flag exists with the same dest and default, and
   ``args_to_config`` gives the JAX package's config, JSON for JSON;
 - the flags of later slices raise, and without ``OBMAN_PLATFORM=cpu`` the
-  CLI wants a GPU;
+  CLI wants a GPU; ``--mano_assets <dir>`` reads real MANO pkl files;
 - 2 epochs and a resumed third equal 3 straight epochs bitwise (weights,
   optimizer moments, counters, logged losses), lr and regul decay on;
 - ``main()`` end to end: train with device augmentation, gradient
@@ -76,17 +76,36 @@ def test_args_to_config_matches_jax(argv):
     (["--compute_dtype", "bfloat16"], "bf16"),
     (["--geometry_dtype", "float32_select"], "geometry_dtype"),
     (["--no_atlas_mesh"], "random-cloud"),
-    (["--mano_assets", "misc/mano"], "DemoModel"),
     (["--evaluate", "--save_results"], "host-tooling"),
 ])
 def test_flags_of_later_slices_raise(cpu, tmp_path, extra, slice_name):
-    argv = list(BASE)
-    if "--mano_assets" in extra:
-        i = argv.index("--mano_assets")
-        argv = argv[:i] + argv[i + 2:]
     with pytest.raises(NotImplementedError, match=slice_name):
-        pcli.main(argv + ["--exp_id", str(tmp_path / "x")] + extra)
+        pcli.main(BASE + ["--exp_id", str(tmp_path / "x")] + extra)
     assert not os.path.exists(tmp_path / "x")  # raised before any side effect
+
+
+@pytest.mark.parametrize("fix", [False, True])
+def test_real_mano_files(cpu, tmp_path, fix):
+    """``--mano_assets <dir>`` builds the net on the tables of the MANO pkl
+    files there; ``--fix_left_shapedirs`` mirrors the left hand's."""
+    from obman_train_tpu_torch.assets import load_mano_assets
+    from tests.test_torch_mano_assets import write_mano_dir
+
+    (tmp_path / "mano").mkdir()
+    mano = write_mano_dir(tmp_path / "mano", seed=3)
+    argv = list(BASE)
+    argv[argv.index("synthetic", argv.index("--mano_assets"))] = mano
+    state, _ = pcli.main(argv + ["--exp_id", str(tmp_path / "x"), "--epochs", "0"]
+                         + (["--fix_left_shapedirs"] if fix else []))
+    branch = state.net.mano_branch
+    for layer, side in ((branch.mano_layer_right, "right"), (branch.mano_layer_left, "left")):
+        want = load_mano_assets(mano, side, fix_left_shapedirs=fix)
+        for name in ("v_template", "shapedirs", "posedirs", "J_regressor", "weights",
+                     "hands_components", "hands_mean"):
+            assert torch.equal(getattr(layer, name), torch.from_numpy(getattr(want, name))), name
+    with pytest.raises(FileNotFoundError, match="MANO_RIGHT"):
+        pcli.main(argv[:argv.index(mano)] + [str(tmp_path / "none")]
+                  + argv[argv.index(mano) + 1:] + ["--exp_id", str(tmp_path / "y")])
 
 
 def test_real_datasets_raise(cpu, tmp_path):
