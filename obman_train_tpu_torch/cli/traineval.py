@@ -137,8 +137,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="web-hosting folder to mirror metric plots into "
                    "(reference expopts/monitoring.py:40-66)")
     e.add_argument("--loader_processes", action="store_true",
-                   help="process workers for augmentation (not ported: "
-                   "the DDP slice); threads are the default")
+                   help="spawned process workers for augmentation (the "
+                   "reference's DataLoader model); threads are the default")
     e.add_argument("--display_freq", type=int, default=500,
                    help="qualitative figure every N batches; 0 disables "
                    "(reference --test_display_freq)")
@@ -290,21 +290,17 @@ def check_ported(args) -> None:
     of the port (ROADMAP.md, queue 1)."""
     unported = [
         (args.distributed, "--distributed: multi-process training is the DDP "
-                           "slice (ROADMAP queue 1, item 6)"),
-        (args.loader_processes, "--loader_processes: process loader workers are "
-                                "the DDP slice (ROADMAP queue 1, item 6)"),
-        (not args.freeze_batchnorm, "--no_freeze_batchnorm: unfrozen BN is the "
-                                    "unfrozen-BN slice (ROADMAP queue 1, item 3.3)"),
+                           "slice (ROADMAP queue 1, item 8)"),
         (args.compute_dtype != "float32", f"--compute_dtype {args.compute_dtype}: the "
-                                          "bf16 slice (ROADMAP queue 1, item 3.4)"),
+                                          "bf16 slice (ROADMAP queue 1, item 4)"),
         (args.geometry_dtype != "float32", f"--geometry_dtype {args.geometry_dtype}: "
                                            "the geometry_dtype slice (ROADMAP queue 1, "
-                                           "item 3.1)"),
+                                           "item 5)"),
         (not args.atlas_mesh, "--no_atlas_mesh: the random-cloud AtlasNet decoder "
-                              "slice (ROADMAP queue 1, item 3.1)"),
+                              "slice (ROADMAP queue 1, item 5)"),
         (args.evaluate and args.save_results and not args.no_simulate,
          "simulation after --evaluate --save_results is the host-tooling slice "
-         "(ROADMAP queue 1, item 9); pass --no_simulate"),
+         "(ROADMAP queue 1, item 6); pass --no_simulate"),
     ]
     for hit, msg in unported:
         if hit:
@@ -402,6 +398,7 @@ def main(argv=None):
             loaders.append(BatchLoader(
                 ds, batch_size=batch_size, shuffle=train_it,
                 num_workers=cfg.data.workers, seed=cfg.train.manual_seed,
+                use_processes=args.loader_processes,
                 # an explicit --workers is honored; the default is clamped
                 # to the host's cores
                 clamp_threads=args.workers is None,

@@ -8,9 +8,10 @@ Side-flip normalization, centre/scale jitter, rotation draw, affine crop,
 centring, photometric augmentation and the -0.5 normalization, or, with
 ``emit_uint8``, the uint8 image the model normalizes on the device. The
 augmentation streams are per ``(seed, epoch, idx)`` (:113-122), so the same
-indices give the same draws as the JAX package. The image chain is the
-float one (neither cv2 nor its uint8 chain is ported); adapters whose
-objects are meshes (``objverts3d``) wait for the real-dataset slice.
+indices give the same draws as the JAX package. The image chain is picked
+as the JAX package picks it (:350-416): uint8 through cv2 when cv2 imports
+and the warp is bilinear, else the float chain; adapters whose objects are
+meshes (``objverts3d``) wait for the real-dataset slice.
 """
 
 from __future__ import annotations
@@ -302,9 +303,15 @@ class HandDataset:
         if BaseQueries.manoidxs in query:
             sample[BaseQueries.manoidxs] = self.pose_dataset.get_manoidxs(idx)
 
-        # final image: photometric augment + warp + normalize(-0.5), float chain
+        # final image: photometric augment + warp + normalize(-0.5). With
+        # cv2 and the bilinear warp the chain stays uint8 end to end (the
+        # reference's PIL chain quantizes per op too, handataset.py:371-407),
+        # else it is the float chain; both draw the same factors in the
+        # same order from ``rng``
         if TransQueries.images in query:
-            img_x = np.asarray(img, np.float32) / 255.0
+            fast_u8 = self.resample == "bilinear" and T._have_cv2()
+            img_x = (np.ascontiguousarray(img, np.uint8) if fast_u8
+                     else np.asarray(img, np.float32) / 255.0)
             if self.train:
                 img_x = T.gaussian_blur(img_x, rng.random() * self.blur_radius)
                 if self.device_augment:
@@ -321,14 +328,18 @@ class HandDataset:
                     )
                     sample["aug_order"] = np.int32(rng.integers(0, 24))
                 else:
-                    img_x = T.color_jitter(
+                    jitter = T.color_jitter_u8 if fast_u8 else T.color_jitter
+                    img_x = jitter(
                         img_x, rng,
                         brightness=self.brightness, contrast=self.contrast,
                         saturation=self.saturation, hue=self.hue,
                     )
-            warped = T.transform_img(
-                img_x, affinetrans, (self.inp_res, self.inp_res), resample=self.resample
-            )
+            if fast_u8:
+                warped = T.warp_affine_u8(img_x, affinetrans, (self.inp_res, self.inp_res))
+            else:
+                warped = T.transform_img(
+                    img_x, affinetrans, (self.inp_res, self.inp_res),
+                    resample=self.resample)
             if self.black_padding:
                 pad = int(self.inp_res * 0.2)
                 warped[0:pad, :] = 0
@@ -336,9 +347,10 @@ class HandDataset:
                 warped[:, 0:pad] = 0
                 warped[:, -pad:-1] = 0
             if self.emit_uint8:
-                sample[TransQueries.images] = np.clip(
-                    np.round(warped * 255.0), 0, 255
-                ).astype(np.uint8)
+                sample[TransQueries.images] = warped if fast_u8 else np.clip(
+                    np.round(warped * 255.0), 0, 255).astype(np.uint8)
+            elif fast_u8:
+                sample[TransQueries.images] = warped.astype(np.float32) / 255.0 - 0.5
             else:
                 sample[TransQueries.images] = (warped - 0.5).astype(np.float32)
 

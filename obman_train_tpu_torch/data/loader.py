@@ -12,13 +12,18 @@ the same batch stream for the same seed.
 
 ``to_model_batch`` turns a query-keyed batch into the static-key batch the
 model reads ("images" NHWC, "sides" int32 0=right/1=left) and
-``derive_spec`` builds the matching :class:`BatchSpec`. Process workers and
-process-sliced (multi-process) loading come with the DDP slice.
+``derive_spec`` builds the matching :class:`BatchSpec`. With
+``use_processes=True`` a persistent pool of spawned worker processes loads
+whole batches instead (the reference's DataLoader worker model, JAX
+:100-215): each child holds its own copy of the dataset, never sees the
+GPU, and yields the threaded loader's batches bit for bit.
+Process-sliced (multi-process) loading comes with the DDP slice.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, List, Optional, Sequence
@@ -59,10 +64,13 @@ def to_model_batch(batch: Dict) -> Dict[str, np.ndarray]:
     for q, name in mapping.items():
         if q in batch:
             val = np.asarray(batch[q])
+            # C order whatever the samples' layout (a transposed rotation
+            # result stacks into a strided array): the tensors' reductions
+            # then take one order on every path, threads or processes
             if name == "images" and val.dtype == np.uint8:
-                out[name] = val  # normalized on the device (4x less to copy)
+                out[name] = np.ascontiguousarray(val)  # normalized on the device
             else:
-                out[name] = val.astype(np.float32, copy=False)
+                out[name] = np.ascontiguousarray(val, dtype=np.float32)
     if "aug_factors" in batch:
         out["aug_factors"] = np.asarray(batch["aug_factors"], np.float32)
         # one op order per batch; sample 0's draw is the standalone
@@ -91,9 +99,48 @@ def derive_spec(batch: Dict, root: str = "wrist"):
     )
 
 
+# ---------------------------------------------------------------------------
+# Process workers: spawned interpreters, each with its own copy of the
+# dataset (pickled once, at spawn). The host warp's ctypes library is a
+# module global that a child loads at its first warp, never pickled.
+# ---------------------------------------------------------------------------
+
+_WORKER_DATASET = None
+_WORKER_EPOCH = None
+
+
+def _proc_init(dataset):
+    global _WORKER_DATASET, _WORKER_EPOCH
+    import torch
+
+    torch.set_num_threads(1)  # one core a worker; the pool is the parallelism
+    try:
+        import cv2
+
+        cv2.setNumThreads(1)  # cv2's own threads would oversubscribe the cores
+    except ImportError:
+        pass
+    _WORKER_DATASET = dataset
+    _WORKER_EPOCH = None
+
+
+def _proc_ping(_):
+    time.sleep(0.3)  # hold the worker so that every slot of the pool spawns
+
+
+def _proc_load(idxs, epoch: int):
+    global _WORKER_EPOCH
+    ds = _WORKER_DATASET
+    if epoch != _WORKER_EPOCH:
+        if hasattr(ds, "reseed"):
+            ds.reseed(epoch)
+        _WORKER_EPOCH = epoch
+    return to_model_batch(collate([ds[int(i)] for i in idxs]))
+
+
 class BatchLoader:
-    """Shuffling, drop-last iterator of model batches with threaded
-    prefetch.
+    """Shuffling, drop-last iterator of model batches with prefetch on
+    threads or, with ``use_processes=True``, on spawned processes.
 
     Epoch ``e`` (the ``e``-th iteration, or the one :meth:`set_epoch`
     names) shuffles with ``seed + e`` and reseeds the dataset's
@@ -112,21 +159,63 @@ class BatchLoader:
         process_count: int = 1,
         clamp_threads: bool = True,
     ):
-        if use_processes:
-            raise NotImplementedError(
-                "process loader workers come with the DDP slice of the port; "
-                "the threaded loader is the ported one")
         if process_count > 1 or process_rank:
             raise NotImplementedError(
                 "process-sliced loading (multi-process runs) comes with the DDP "
-                "slice of the port")
+                "slice of the port (ROADMAP queue 1, item 8)")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.num_workers = max(1, num_workers)
         self.seed = seed
         self.clamp_threads = clamp_threads
+        self.use_processes = use_processes
+        self._pool = None
         self._epoch = 0
+
+    def _ensure_pool(self):
+        """The persistent ``spawn`` pool, every worker started while the
+        environment hides the GPU: the children run with
+        ``CUDA_VISIBLE_DEVICES`` empty, so none of them can initialize
+        CUDA."""
+        if self._pool is not None:
+            return self._pool
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        # no GPU, and one BLAS/OpenMP thread a child (as torch's and cv2's
+        # in _proc_init): the pool is the parallelism
+        child_env = {"CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1",
+                     "OPENBLAS_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
+        saved = {k: os.environ.get(k) for k in child_env}
+        os.environ.update(child_env)
+        try:
+            pool = ProcessPoolExecutor(
+                self.num_workers, mp_context=multiprocessing.get_context("spawn"),
+                initializer=_proc_init, initargs=(self.dataset,))
+            # workers spawn lazily at submit: start every slot now, while
+            # the environment hides the GPU
+            list(pool.map(_proc_ping, range(self.num_workers)))
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        self._pool = pool
+        return pool
+
+    def close(self) -> None:
+        """Shut the process pool down (a no-op for threads)."""
+        if self._pool is not None:
+            self._pool.shutdown(cancel_futures=True)
+            self._pool = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
 
     def __len__(self):
         return len(self.dataset) // self.batch_size  # the last partial batch is dropped
@@ -163,6 +252,13 @@ class BatchLoader:
             for i in range(n_batches)
         ]
 
+        if self.use_processes:
+            pool = self._ensure_pool()
+            submit = lambda idxs: pool.submit(_proc_load, idxs, epoch)  # noqa: E731
+            window = self.num_workers * 2
+            yield from self._drain(submit, batches, window, epoch)
+            return
+
         def load(idxs):
             return to_model_batch(collate([self.dataset[int(i)] for i in idxs]))
 
@@ -173,16 +269,20 @@ class BatchLoader:
         if self.clamp_threads:
             threads = min(threads, os.cpu_count() or 1)
         with ThreadPoolExecutor(threads) as pool:
-            window = threads * 2  # batches in flight
-            futures = deque(pool.submit(load, b) for b in batches[:window])
-            next_submit = min(window, n_batches)
-            yielded = 0
-            while futures:
-                yield self._finalize(futures.popleft().result(), epoch, yielded)
-                yielded += 1
-                if next_submit < n_batches:
-                    futures.append(pool.submit(load, batches[next_submit]))
-                    next_submit += 1
+            yield from self._drain(lambda idxs: pool.submit(load, idxs), batches,
+                                   threads * 2, epoch)
+
+    def _drain(self, submit, batches, window, epoch):
+        """Yield the batches in order, ``window`` of them in flight."""
+        futures = deque(submit(b) for b in batches[:window])
+        next_submit = min(window, len(batches))
+        yielded = 0
+        while futures:
+            yield self._finalize(futures.popleft().result(), epoch, yielded)
+            yielded += 1
+            if next_submit < len(batches):
+                futures.append(submit(batches[next_submit]))
+                next_submit += 1
 
 
 class ConcatLoader:
@@ -199,6 +299,10 @@ class ConcatLoader:
     def set_epoch(self, epoch: int) -> None:
         for ld in self.loaders:
             ld.set_epoch(epoch)
+
+    def close(self) -> None:
+        for ld in self.loaders:
+            ld.close()
 
     def __iter__(self):
         iters = [iter(ld) for ld in self.loaders]

@@ -1,18 +1,24 @@
-"""Host-side (numpy) geometry and photometric transforms of the input
-pipeline: the port's own copy of what the JAX package's
-``data/transforms.py`` runs without cv2.
+"""Host-side (numpy, cv2) geometry and photometric transforms of the
+input pipeline: the port's own copy of the JAX package's
+``data/transforms.py``.
 
 - affine crop construction with rotation about the image centre and the
-  post-rotation intrinsics transform (:27-95; handutils.py:63-101);
-- the inverse-mapped bilinear warp (:98-189): the host C++ kernel of
+  post-rotation intrinsics transform (handutils.py:63-101);
+- the inverse-mapped bilinear warp: the host C++ kernel of
   ``native/imageproc.cpp``, with the numpy gather as its plain version
   (``use_native=False``) and as the ``nearest`` path;
 - the float colour jitter with random factors in random order, hue
-  included (:198-297; imgtrans.py:5-53, torchvision semantics on [0, 1]);
-- the PIL-style Gaussian blur, scipy path (:392-403).
+  included (imgtrans.py:5-53, torchvision semantics on [0, 1]); its hue
+  takes cv2's uint8 HSV round trip when cv2 imports, as the JAX package's
+  does;
+- the uint8 chain (JAX :297-403): ``color_jitter_u8`` (LUTs built in
+  numpy, ``cv2.addWeighted``, HSV_FULL hue with a wrapping uint8 shift)
+  and ``warp_affine_u8`` (``cv2.warpAffine`` with ``WARP_INVERSE_MAP`` on
+  the float64 inverse), picked by ``HandDataset`` whenever cv2 imports;
+- the PIL-style Gaussian blur: cv2 ``GaussianBlur((0, 0), sigma)`` when
+  cv2 imports, else scipy.
 
-The JAX package's cv2 uint8 chain, OBJ loading and mesh-surface sampling
-belong to the real-dataset slice.
+OBJ loading and mesh-surface sampling belong to the real-dataset slice.
 """
 
 from __future__ import annotations
@@ -203,9 +209,26 @@ def adjust_saturation(img, factor):
     return np.clip(factor * img + (1 - factor) * gray, 0.0, 1.0)
 
 
+def adjust_hue_u8(img_u8: np.ndarray, factor: float) -> np.ndarray:
+    """uint8 hue shift through cv2's HSV_FULL conversion (the H channel
+    spans 0..255 and the uint8 addition wraps mod 256)."""
+    import cv2
+
+    hsv = cv2.cvtColor(img_u8, cv2.COLOR_RGB2HSV_FULL)
+    shift = np.uint8(int(round(factor * 255.0)) % 256)
+    hsv[..., 0] = hsv[..., 0] + shift
+    return cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB_FULL)
+
+
 def adjust_hue(img, factor):
-    """Shift hue by ``factor`` turns ([-0.5, 0.5]) through an HSV round
-    trip in numpy (the JAX package's cv2-free path)."""
+    """Shift hue by ``factor`` turns ([-0.5, 0.5]): through cv2 on uint8
+    when cv2 imports, else an HSV round trip in numpy (the JAX package's
+    two paths)."""
+    try:
+        u8 = np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8)
+        return adjust_hue_u8(u8, factor).astype(np.float32) / 255.0
+    except ImportError:
+        pass
     maxc = img.max(-1)
     minc = img.min(-1)
     v = maxc
@@ -262,10 +285,99 @@ def color_jitter(
     return img
 
 
+# ---------------------------------------------------------------------------
+# uint8 chain (cv2): per-op uint8 quantization, as the reference's
+# torchvision ops on PIL images (imgtrans.py:30-53)
+# ---------------------------------------------------------------------------
+
+
+def _have_cv2() -> bool:
+    try:
+        import cv2  # noqa: F401
+
+        return True
+    except ImportError:
+        return False
+
+
+def adjust_brightness_u8(img_u8: np.ndarray, factor: float) -> np.ndarray:
+    import cv2
+
+    lut = np.clip(np.round(np.arange(256) * factor), 0, 255).astype(np.uint8)
+    return cv2.LUT(img_u8, lut)
+
+
+def adjust_contrast_u8(img_u8: np.ndarray, factor: float) -> np.ndarray:
+    import cv2
+
+    mean = float(cv2.mean(cv2.cvtColor(img_u8, cv2.COLOR_RGB2GRAY))[0])
+    lut = np.clip(np.round(np.arange(256) * factor + (1 - factor) * mean),
+                  0, 255).astype(np.uint8)
+    return cv2.LUT(img_u8, lut)
+
+
+def adjust_saturation_u8(img_u8: np.ndarray, factor: float) -> np.ndarray:
+    import cv2
+
+    gray = cv2.cvtColor(cv2.cvtColor(img_u8, cv2.COLOR_RGB2GRAY), cv2.COLOR_GRAY2RGB)
+    return cv2.addWeighted(img_u8, factor, gray, 1.0 - factor, 0.0)
+
+
+def color_jitter_u8(
+    img_u8: np.ndarray,
+    rng: np.random.Generator,
+    brightness: float = 0.0,
+    contrast: float = 0.0,
+    saturation: float = 0.0,
+    hue: float = 0.0,
+) -> np.ndarray:
+    """uint8 twin of :func:`color_jitter`: the same factor draws and op
+    order from ``rng``, each op quantized to uint8."""
+    ops = []
+    if brightness > 0:
+        f = rng.uniform(max(0, 1 - brightness), 1 + brightness)
+        ops.append(lambda im, f=f: adjust_brightness_u8(im, f))
+    if saturation > 0:
+        f = rng.uniform(max(0, 1 - saturation), 1 + saturation)
+        ops.append(lambda im, f=f: adjust_saturation_u8(im, f))
+    if hue > 0:
+        f = rng.uniform(-hue, hue)
+        ops.append(lambda im, f=f: adjust_hue_u8(im, f))
+    if contrast > 0:
+        f = rng.uniform(max(0, 1 - contrast), 1 + contrast)
+        ops.append(lambda im, f=f: adjust_contrast_u8(im, f))
+    order = rng.permutation(len(ops))
+    for k in order:
+        img_u8 = ops[k](img_u8)
+    return img_u8
+
+
+def warp_affine_u8(img_u8: np.ndarray, affine_trans: np.ndarray,
+                   res: Tuple[int, int]) -> np.ndarray:
+    """cv2 bilinear warp of a uint8 image with :func:`transform_img`'s
+    mapping (dst(x, y) = src(inv @ (x, y, 1)), black fill). cv2
+    interpolates in fixed point, so it may differ from the float warp by
+    1-2 LSB."""
+    import cv2
+
+    inv = np.linalg.inv(np.asarray(affine_trans, np.float64))
+    return cv2.warpAffine(
+        img_u8, inv[:2], (int(res[1]), int(res[0])),
+        flags=cv2.INTER_LINEAR | cv2.WARP_INVERSE_MAP,
+        borderMode=cv2.BORDER_CONSTANT, borderValue=0,
+    )
+
+
 def gaussian_blur(img: np.ndarray, radius: float) -> np.ndarray:
-    """PIL-style GaussianBlur(radius) (handataset.py:374-375), scipy path."""
+    """PIL-style GaussianBlur(radius) (handataset.py:374-375): cv2 when it
+    imports (uint8 or float), else scipy."""
     if radius <= 0:
         return img
-    from scipy.ndimage import gaussian_filter
+    try:
+        import cv2
 
-    return gaussian_filter(img, sigma=(radius, radius, 0))
+        return cv2.GaussianBlur(img, (0, 0), sigmaX=radius, sigmaY=radius)
+    except ImportError:
+        from scipy.ndimage import gaussian_filter
+
+        return gaussian_filter(img, sigma=(radius, radius, 0))

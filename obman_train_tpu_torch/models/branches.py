@@ -10,7 +10,11 @@ are the release checkpoints' keys: ``base_layer.{0,2}``, ``pose_reg``,
 - Both MANO sides run on the full batch and a per-sample ``where`` picks
   one (JAX branches.py:169-171): static shapes, no sub-batches.
 - PointGenCon is the reference's Conv1d(k=1) + BatchNorm1d stack over
-  points, in (B, C, N) layout.
+  points, in (B, C, N) layout; in ``train()`` its BN normalizes over B x N
+  with flax's statistics (``resnet.BatchNorm1d``).
+- The MANO base MLP puts a :class:`Dropout` before each Linear (JAX
+  branches.py:49-64), active in ``train()`` only, its mask drawn from the
+  ``torch.Generator`` the caller passes.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from torch import nn
 
 from obman_train_tpu_torch.assets.mano_assets import ManoAssets
 from obman_train_tpu_torch.models.mano import ManoLayer, mano_forward
+from obman_train_tpu_torch.models.resnet import BatchNorm1d
 
 # Hard-coded StereoHands shape coefficients (reference: manobranch.py:34-47).
 STEREO_SHAPE = np.array(
@@ -37,8 +42,30 @@ SIDE_RIGHT = 0
 SIDE_LEFT = 1
 
 
-def _bn1d(c: int) -> nn.BatchNorm1d:
-    return nn.BatchNorm1d(c, eps=1e-5, momentum=0.1)
+def _bn1d(c: int) -> BatchNorm1d:
+    return BatchNorm1d(c, eps=1e-5, momentum=0.1)
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in ``train()`` each entry is kept with
+    probability 1 - p and the kept ones are scaled by 1/(1 - p); in
+    ``eval()`` the identity. The mask comes from ``generator`` (the train
+    step seeds one from the run's seed and the update count), never from
+    torch's global generator."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = float(p)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("dropout in train() needs an explicit torch.Generator")
+        keep_prob = 1.0 - self.p
+        u = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+        return torch.where(u < keep_prob, x / keep_prob, torch.zeros_like(x))
 
 
 def adapt_skeleton(weight: torch.Tensor, joints: torch.Tensor) -> torch.Tensor:
@@ -89,7 +116,7 @@ class ManoBranch(nn.Module):
         neurons = [in_features, *base_neurons]
         for inp, out in zip(neurons[:-1], neurons[1:]):
             if dropout:
-                layers.append(nn.Dropout(p=dropout))
+                layers.append(Dropout(dropout))
             layers += [nn.Linear(inp, out), nn.ReLU()]
         self.base_layer = nn.Sequential(*layers)
         pose_size = (ncomps + 3) if use_pca else 16 * 9
@@ -115,9 +142,12 @@ class ManoBranch(nn.Module):
         sides: torch.Tensor,
         root_palm: bool = False,
         use_stereoshape: bool = False,
+        dropout_gen: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
         B = features.shape[0]
-        base = self.base_layer(features)
+        base = features
+        for layer in self.base_layer:
+            base = layer(base, dropout_gen) if isinstance(layer, Dropout) else layer(base)
         pose = self.pose_reg(base)
         mano_pose = pose if self.use_pca else pose.reshape(B, 16, 3, 3)
 
@@ -129,15 +159,18 @@ class ManoBranch(nn.Module):
             shape = None
         trans = self.trans_reg(base) if self.trans_reg is not None else None
 
+        # MANO runs in at least float32 whatever the encoder's dtype (JAX
+        # :130-142); a float64 net (a reference run on the CPU) keeps float64
+        geo = torch.promote_types(features.dtype, torch.float32)
         kw = dict(
-            betas=None if shape is None else shape.float(),
-            trans=None if trans is None else trans.float(),
+            betas=None if shape is None else shape.to(geo),
+            trans=None if trans is None else trans.to(geo),
             use_pca=self.use_pca,
             ncomps=self.ncomps,
             center_idx=self.center_idx,
             root_palm=root_palm,
         )
-        mano_pose = mano_pose.float()
+        mano_pose = mano_pose.to(geo)
         verts_r, joints_r = mano_forward(self.mano_layer_right, mano_pose, **kw)
         verts_l, joints_l = mano_forward(self.mano_layer_left, mano_pose, **kw)
 

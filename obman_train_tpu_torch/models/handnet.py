@@ -14,9 +14,12 @@ Frames arrive NHWC (uint8 or float) as on the JAX path and are permuted to
 NCHW once. A uint8 batch that carries ``aug_factors``/``aug_order`` (the
 loader's ``--device_augment``) is colour-jittered after /255 and before
 -0.5, where the JAX package does it (handnet.py:137-149). Branch gating is static, from the config and a
-:class:`BatchSpec`, as in the JAX package. The module runs in ``eval()``
-mode only: frozen-BN training (the reference default) is ``eval()`` with
-gradients on, the JAX ``train=False``; unfrozen BN is a later slice.
+:class:`BatchSpec`, as in the JAX package. The module's mode is the JAX
+``train`` flag: ``eval()`` is ``train=False`` (BN on its running
+statistics, no dropout; frozen-BN training is ``eval()`` with gradients
+on), ``train()`` is ``train=True`` (BN on batch statistics with flax's
+running-statistics update, dropout on, its mask from ``dropout_gen``). The
+contact block and the losses do not depend on the mode.
 """
 
 from __future__ import annotations
@@ -77,16 +80,18 @@ class HandNet(nn.Module):
         super().__init__()
         if cfg.compute_dtype != "float32":
             raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r}: only float32 is ported"
+                f"compute_dtype={cfg.compute_dtype!r}: only float32 is ported "
+                "(bf16 is ROADMAP queue 1, item 4)"
             )
         if cfg.geometry_dtype != "float32":
             raise NotImplementedError(
-                f"geometry_dtype={cfg.geometry_dtype!r}: only float32 is ported"
+                f"geometry_dtype={cfg.geometry_dtype!r}: only float32 is ported "
+                "(ROADMAP queue 1, item 5)"
             )
         if not cfg.atlas.mesh:
             raise NotImplementedError(
                 "atlas.mesh=False (the random-cloud decoder) is training-only "
-                "and not ported yet"
+                "and not ported yet (ROADMAP queue 1, item 5)"
             )
         self.cfg = cfg
         feat = cfg.img_feature_size
@@ -141,6 +146,7 @@ class HandNet(nn.Module):
         regul_scale=1.0,
         contains: Optional[ContainsFn] = None,
         contact: bool = True,
+        dropout_gen: Optional[torch.Generator] = None,
     ) -> Tuple[Optional[torch.Tensor], Dict[str, Any], Dict[str, Any]]:
         """Returns ``(total_loss, results, losses)`` like the JAX
         ``HandNet.__call__`` with ``train=False``. ``regul_scale``
@@ -149,14 +155,11 @@ class HandNet(nn.Module):
         test hook; the default is the CUDA kernel path). ``contact=False``
         with ``no_loss=True`` leaves out the contact block: the demo path
         reads none of its outputs, and the JAX package's jitted demo program
-        drops it as dead code (demo/inference.py:95-99)."""
+        drops it as dead code (demo/inference.py:95-99). ``dropout_gen``
+        draws the MANO MLP's dropout masks in ``train()`` with
+        ``fc_dropout > 0``."""
         if not contact and not no_loss:
             raise ValueError("contact=False needs no_loss=True: the losses read the block")
-        if self.training:
-            raise NotImplementedError(
-                "training mode (unfrozen BN, dropout) is not ported; call "
-                ".eval(): frozen-BN training is eval() with gradients on"
-            )
         cfg = self.cfg
         total_loss = None
         results: Dict[str, Any] = {}
@@ -222,6 +225,7 @@ class HandNet(nn.Module):
                 sides=batch["sides"],
                 root_palm=spec.root_palm,
                 use_stereoshape=spec.use_stereoshape,
+                dropout_gen=dropout_gen,
             )
             if not no_loss:
                 mano_total, mano_losses = compute_mano_loss(

@@ -3,6 +3,7 @@ from obman_train_tpu_torch.train.steps import (
     OptaxRMSprop,
     TrainState,
     create_train_state,
+    dropout_generator,
     lr_schedule,
     make_eval_step,
     make_optimizer,
@@ -15,6 +16,7 @@ __all__ = [
     "OptaxRMSprop",
     "TrainState",
     "create_train_state",
+    "dropout_generator",
     "lr_schedule",
     "make_eval_step",
     "make_optimizer",

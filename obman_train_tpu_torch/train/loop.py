@@ -309,7 +309,19 @@ def fit(
 ):
     """The training run (traineval.py:281-404); with ``cfg.evaluate`` one
     val pass. Returns ``(state, metrics)``: the val dict when evaluating,
-    else the monitor's per-metric history."""
+    else the monitor's per-metric history. Train passes run the step in
+    ``train()`` unless ``cfg.train.freeze_batchnorm``; val passes and
+    figure forwards run in ``eval()``. The loaders' process pools are shut
+    down when the run ends, also on an error."""
+    try:
+        return _fit(cfg, state, train_loader, val_loader, start_epoch, profile_dir)
+    finally:
+        for ld in (train_loader, val_loader):
+            if ld is not None and hasattr(ld, "close"):
+                ld.close()
+
+
+def _fit(cfg, state, train_loader, val_loader, start_epoch, profile_dir):
     hosting = (
         os.path.join(cfg.host_folder, os.path.basename(os.path.normpath(cfg.exp_id)))
         if cfg.host_folder else None

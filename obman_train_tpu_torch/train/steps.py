@@ -8,8 +8,13 @@
 - ``make_train_step``: frozen-BN training, the reference default
   (README.md:133, netutils.py:4-19) and the JAX ``train_bn=False``: the
   net runs in ``eval()`` (BN on its running stats, no dropout) with
-  gradients on. Gradient accumulation over strided microbatches averages
-  losses and gradients as the JAX ``lax.scan`` does.
+  gradients on. ``train_bn=True`` (JAX :140-290, ``mutable=["batch_stats"]``)
+  runs the step in ``train()``: BN on batch statistics, updating the
+  running ones, and dropout drawn from a generator seeded by the run's seed,
+  the update count and the microbatch. Gradient accumulation over strided
+  microbatches averages losses and gradients as the JAX ``lax.scan`` does;
+  in ``train()`` its microbatch forwards update the running statistics in
+  sequence, as the scan carries them.
 - ``make_eval_step``: losses and predictions without gradients.
 
 The port's state is PyTorch's own: the parameters live in the module and
@@ -21,8 +26,9 @@ schedule, the update count and the regul decay factor.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -41,6 +47,7 @@ class TrainState:
     lr_fn: Callable[[int], float]   # learning rate of update number `step`
     step: int = 0
     regul_scale: float = 1.0        # decay factor of the edge/Laplacian reguls
+    seed: int = 0                   # the run's seed, for the dropout masks
 
 
 def _frozen(name: str, train_cfg: TrainConfig) -> bool:
@@ -120,7 +127,19 @@ def make_optimizer(train_cfg: TrainConfig, net: nn.Module) -> torch.optim.Optimi
 def create_train_state(net: HandNet, optimizer: torch.optim.Optimizer,
                        train_cfg: TrainConfig, steps_per_epoch: int = 1) -> TrainState:
     """The state of a run that starts at update 0 with no regul decay."""
-    return TrainState(net, optimizer, lr_schedule(train_cfg, steps_per_epoch))
+    return TrainState(net, optimizer, lr_schedule(train_cfg, steps_per_epoch),
+                      seed=int(train_cfg.manual_seed))
+
+
+def dropout_generator(device: torch.device, seed: int, step: int,
+                      micro: int = 0) -> torch.Generator:
+    """The dropout masks' generator of update ``step``, microbatch
+    ``micro``: a pure function of the three, as the JAX step folds the
+    update count into its key (:193), so a resumed run draws the masks of
+    the run that never stopped."""
+    state = np.random.SeedSequence([int(seed), int(step), int(micro)]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
 
 
 def _net_device(net: nn.Module, device: DeviceLike) -> torch.device:
@@ -165,17 +184,19 @@ def make_train_step(
     (rows i, i+A, ...), sums their gradients and scales the sum by 1/A,
     as the JAX scan does; the losses are averaged the same way. The
     contact terms' masked means then normalize per microbatch, as in JAX.
+
+    ``train_bn=True`` runs the forwards in ``train()`` (unfrozen BN and
+    dropout) and puts the net back in ``eval()`` after the step, also when
+    the step raises.
     """
-    if train_bn:
-        raise NotImplementedError(
-            "train_bn=True (unfrozen BN, SyncBN under DDP) is not ported yet: "
-            "a later slice")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     dev = _net_device(net, device)
+    use_dropout = train_bn and bool(net.cfg.fc_dropout)
 
-    def forward_backward(batch, regul_scale):
-        total, results, losses = net(batch, spec, regul_scale=regul_scale)
+    def forward_backward(batch, regul_scale, gen: Optional[torch.Generator]):
+        total, results, losses = net(batch, spec, regul_scale=regul_scale,
+                                     dropout_gen=gen)
         total.backward()
         joints = results["joints"].detach() if return_joints else None
         return {k: v.detach() for k, v in losses.items()}, joints
@@ -183,11 +204,21 @@ def make_train_step(
     def step_fn(state: TrainState, batch: Dict):
         if state.net is not net or state.optimizer is not opt:
             raise ValueError("the state holds another net or optimizer than this step")
-        net.eval()  # frozen BN: running stats, no dropout
+        # frozen BN: running stats, no dropout; unfrozen: the JAX train=True
+        net.train(train_bn)
+        try:
+            return update(state, batch)
+        finally:
+            net.eval()
+
+    def gen_for(state, micro):
+        return dropout_generator(dev, state.seed, state.step, micro) if use_dropout else None
+
+    def update(state: TrainState, batch: Dict):
         batch = _to_device(batch, dev)
         net.zero_grad(set_to_none=True)
         if accum_steps == 1:
-            losses, joints = forward_backward(batch, state.regul_scale)
+            losses, joints = forward_backward(batch, state.regul_scale, gen_for(state, 0))
         else:
             b = int(batch["images"].shape[0])
             if b % accum_steps:
@@ -197,7 +228,8 @@ def make_train_step(
             for i in range(accum_steps):
                 micro = {k: v[i::accum_steps] if v.ndim and v.shape[0] == b else v
                          for k, v in batch.items()}
-                mb_losses, mb_joints = forward_backward(micro, state.regul_scale)
+                mb_losses, mb_joints = forward_backward(micro, state.regul_scale,
+                                                        gen_for(state, i))
                 losses = mb_losses if losses is None else {
                     k: losses[k] + v for k, v in mb_losses.items()}
                 if return_joints:

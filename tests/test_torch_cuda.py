@@ -227,6 +227,54 @@ def test_train_step_on_cuda_matches_cpu_port(cuda):
                                    msg=name)
 
 
+def test_unfrozen_bn_train_step_on_cuda_matches_cpu_port(cuda):
+    """One contact-config train step with unfrozen BN on the card: the
+    same launches as the frozen step, the net back in ``eval()``, and its
+    gradients and updated running statistics held against the CPU port run
+    in float64. Train-mode BN over 16 values a channel makes single tensors
+    ill-conditioned (here the card's float32 moved a layer3 conv's gradient
+    by 7.1e-2 of its largest entry, the CPU's float32 by 2.2e-3), so: the
+    whole gradient within 1e-2 in relative L2, each tensor within 1e-1 of
+    its largest entry, each running statistic within 1e-2. The decoder's
+    conv biases that feed a BN have an exact gradient of 0: under 1e-4 of
+    their weight's."""
+    batch = _gt_batch(4, 64, 1)
+    zero_grad = ("atlas_branch.decoder.conv1.bias", "atlas_branch.decoder.conv2.bias",
+                 "atlas_branch.decoder.conv3.bias")
+
+    def run(device, dtype=torch.float32):
+        net = init_weights(build_handnet(CONTACT, synthetic_mano_assets("right"),
+                                         synthetic_mano_assets("left"), device="cpu"),
+                           seed=0).to(device, dtype)
+        cfg = TrainConfig(optimizer="sgd", lr=0.0, momentum=0.0)
+        opt = train.make_optimizer(cfg, net)
+        step = train.make_train_step(net, opt, BatchSpec(), train_bn=True, device=device)
+        b = {k: v.astype(np.float64) if dtype == torch.float64 and v.dtype == np.float32
+             else v for k, v in batch.items()}
+        LAUNCHES.clear()
+        _, losses = step(train.create_train_state(net, opt, cfg), b)
+        launches = dict(LAUNCHES)
+        assert not net.training and all(torch.isfinite(v).all() for v in losses.values())
+        grads = {n: p.grad.cpu().double() for n, p in net.named_parameters()}
+        stats = {k: v.cpu().double() for k, v in net.state_dict().items() if "running_" in k}
+        return launches, grads, stats
+
+    glaunch, ggrads, gstats = run(cuda)
+    assert glaunch == {raytri.KERNEL: 1, nnsqdist.KERNEL_ARGMIN: 6, nnsqdist.KERNEL_MIN: 1}
+    _, rgrads, rstats = run("cpu", torch.float64)
+    for name in zero_grad:
+        layer = float(rgrads[name.replace(".bias", ".weight")].abs().max())
+        assert float(ggrads[name].abs().max()) <= 1e-4 * layer, name
+    names = [n for n in rgrads if n not in zero_grad]
+    num = sum(float(((ggrads[n] - rgrads[n]) ** 2).sum()) for n in names)
+    assert (num / sum(float((rgrads[n] ** 2).sum()) for n in names)) ** 0.5 <= 1e-2
+    for name in names:
+        ref = rgrads[name]
+        assert float((ggrads[name] - ref).abs().max()) <= 1e-1 * float(ref.abs().max()), name
+    for name, ref in rstats.items():
+        assert float((gstats[name] - ref).abs().max()) <= 1e-2 * float(ref.abs().max()), name
+
+
 def _loop_state(device, B_steps=2, B=8):
     from obman_train_tpu_torch.data import factory, loader
 

@@ -4,9 +4,10 @@ package's on the CPU: the synthetic adapter, ``HandDataset`` samples
 the ``BatchLoader``/``ConcatLoader`` streams over two epochs, and the host
 C++ warp against its numpy version.
 
-Both packages run the cv2-free float chain here: the port has no other,
-and the JAX package picks its cv2 uint8 chain whenever cv2 imports, so the
-tests hide cv2 from it (``sys.modules["cv2"] = None``). Tolerances: uint8
+Both packages run the cv2-free float chain here, the fallback each picks
+when cv2 does not import: the tests hide cv2 (``sys.modules["cv2"] =
+None``); ``test_torch_data_cv2.py`` holds the uint8 cv2 chain and the
+process loader workers. Tolerances: uint8
 images, integer orders and float32 geometry bitwise (the geometry to 1e-6
 as a bound); the C++ warp against the numpy gather to 2e-5 of the value
 range (the same taps summed in another order).
@@ -34,7 +35,7 @@ META = {"size": 12, "img_res": 64}
 
 @pytest.fixture(autouse=True)
 def no_cv2(monkeypatch):
-    """The JAX package's cv2-free chain, the one the port ports."""
+    """Both packages' cv2-free chain, the fallback without cv2."""
     monkeypatch.setitem(sys.modules, "cv2", None)
 
 
@@ -138,8 +139,6 @@ def test_set_epoch_replays_the_seeded_stream():
 
 def test_unported_paths_raise():
     ds = factory.get_dataset("synthetic", "train", meta=META)
-    with pytest.raises(NotImplementedError, match="DDP slice"):
-        loader.BatchLoader(ds, batch_size=4, use_processes=True)
     with pytest.raises(NotImplementedError, match="DDP slice"):
         loader.BatchLoader(ds, batch_size=4, process_count=2)
     for name in ("obman", "fhbhands", "stereohands", "core50"):

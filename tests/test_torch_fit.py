@@ -2,8 +2,9 @@
 ``fit`` on the CPU, from the same initial weights (``state_dict_from_jax``
 of the JAX state), the default CLI config at 64 px, B=4, synthetic data,
 2 epochs of 2 train and 2 val steps, adam at lr 1e-4, no figures. Both
-packages run the cv2-free data chain (cv2 hidden from the JAX package), so
-they see the same batches bitwise.
+packages run the cv2-free data chain (cv2 hidden from both; the uint8 cv2
+chain is held bitwise in ``test_torch_data_cv2.py``), so they see the same
+batches bitwise.
 
 Tolerances, and the worst case measured when they were set:
 
@@ -87,15 +88,15 @@ def _port_fit(exp, variables):
 @pytest.fixture(scope="module")
 def both(tmp_path_factory):
     saved = sys.modules.get("cv2", 0)
-    sys.modules["cv2"] = None  # the JAX package's cv2-free data chain
+    sys.modules["cv2"] = None  # both packages' cv2-free data chain
     try:
         variables, jm = _jax_fit(str(tmp_path_factory.mktemp("jax")))
+        pm = _port_fit(str(tmp_path_factory.mktemp("port")), variables)
     finally:
         if saved == 0:
             del sys.modules["cv2"]
         else:
             sys.modules["cv2"] = saved
-    pm = _port_fit(str(tmp_path_factory.mktemp("port")), variables)
     return jm, pm
 
 

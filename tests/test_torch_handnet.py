@@ -214,24 +214,36 @@ def test_rich_config_round_trip_and_forward():
 
 def test_loss_path_and_training_mode_raise():
     """The loss path runs (``no_loss=False`` gives a finite total and the
-    loss dict; its parity with JAX is tests/test_torch_losses.py), while
-    unfrozen-BN training mode (``net.train()``) still raises."""
+    loss dict; its parity with JAX is tests/test_torch_losses.py), and so
+    does training mode (``net.train()``, the JAX ``train=True``; its parity
+    is tests/test_torch_train_bn.py): BN folds the batch statistics into
+    the running ones, which ``eval()`` then reads."""
     _, pcfg = _configs(CONTACT)
     net = build_handnet(pcfg, synthetic_mano_assets("right"),
                         synthetic_mano_assets("left"), device="cpu")
     rng = np.random.default_rng(0)
-    batch = {"images": torch.zeros((1, 32, 32, 3), dtype=torch.uint8),
-             "sides": torch.zeros((1,), dtype=torch.int32),
-             "joints3d": torch.from_numpy(rng.normal(0, 30, (1, 21, 3)).astype(np.float32)),
-             "verts3d": torch.from_numpy(rng.normal(0, 30, (1, 778, 3)).astype(np.float32)),
-             "objpoints3d": torch.from_numpy(rng.normal(0, 50, (1, 600, 3)).astype(np.float32))}
+    batch = {"images": torch.from_numpy(rng.integers(0, 256, (2, 32, 32, 3)).astype(np.uint8)),
+             "sides": torch.zeros((2,), dtype=torch.int32),
+             "joints3d": torch.from_numpy(rng.normal(0, 30, (2, 21, 3)).astype(np.float32)),
+             "verts3d": torch.from_numpy(rng.normal(0, 30, (2, 778, 3)).astype(np.float32)),
+             "objpoints3d": torch.from_numpy(rng.normal(0, 50, (2, 600, 3)).astype(np.float32))}
     with torch.no_grad():
         total, _, losses = net(batch, BatchSpec(), no_loss=False)
     assert torch.isfinite(total) and losses["total_loss"] is total
+    stats = {k: v.clone() for k, v in net.state_dict().items() if "running" in k}
     net.train()
     for no_loss in (False, True):
-        with pytest.raises(NotImplementedError, match="training mode"):
-            net(batch, BatchSpec(), no_loss=no_loss)
+        with torch.no_grad():
+            total_t, res, _ = net(batch, BatchSpec(), no_loss=no_loss)
+        assert res["verts"].shape == (2, 778, 3)
+        assert no_loss or (torch.isfinite(total_t) and float(total_t) != float(total))
+    moved = [k for k, v in net.state_dict().items() if k in stats and not torch.equal(v, stats[k])]
+    assert len(moved) == len(stats)  # every running statistic, encoder and decoder
+    assert int(net.base_net.bn1.num_batches_tracked) == 2
+    net.eval()
+    with torch.no_grad():
+        total_e, _, _ = net(batch, BatchSpec(), no_loss=False)
+    assert float(total_e) != float(total)  # eval reads the updated statistics
 
 
 def test_unported_dtypes_raise():

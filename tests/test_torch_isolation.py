@@ -89,5 +89,21 @@ def test_walk_covers_every_slice_module():
         "obman_train_tpu_torch.visualize", "obman_train_tpu_torch.visualize.displaymano",
         "obman_train_tpu_torch.visualize.viz2d", "obman_train_tpu_torch.visualize.viz3d",
         "obman_train_tpu_torch.visualize.html_mesh",
+        # the training recipe: the uint8 chain, process workers, unfrozen BN
+        "obman_train_tpu_torch.models.resnet", "obman_train_tpu_torch.models.branches",
+        "obman_train_tpu_torch.models.handnet",
     ):
         assert name in walked, name
+
+
+SCRIPTS = ["chip_smoke.py"] + sorted(
+    os.path.join("tools", n) for n in os.listdir(os.path.join(REPO, "tools"))
+    if n.startswith("torch_") and n.endswith(".py"))
+
+
+@pytest.mark.parametrize("rel", SCRIPTS)
+def test_port_scripts_import_nothing_forbidden(rel):
+    """``chip_smoke.py`` and the port's tools run where JAX is absent."""
+    assert "tools/torch_convergence_run.py" in SCRIPTS
+    for name in _imported_roots(os.path.join(REPO, rel)):
+        assert name.split(".")[0] not in FORBIDDEN, f"{rel} imports {name}"

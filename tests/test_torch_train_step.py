@@ -14,7 +14,8 @@ the CPU, on the same weights and the same synthetic GT batch
 - ``accum_steps=2`` against the JAX scan, with sgd so the parameters
   after the update are linear in the gradients: atol 1e-3 lr per entry
   over the gradient scale.
-- A freeze flag, the schedule, the eval step and ``train_bn=True``.
+- A freeze flag, the schedule, the eval step, and that ``train_bn=True``
+  runs and leaves the net in ``eval()``.
 """
 
 import flax
@@ -208,8 +209,19 @@ def test_eval_step_and_unported_modes(pair):
     assert not out["verts"].requires_grad
 
     opt = train.make_optimizer(TrainConfig(), pnet)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        train.make_train_step(pnet, opt, BatchSpec(), train_bn=True, device="cpu")
+    # unfrozen BN runs (parity: test_torch_train_bn.py) and leaves the net in
+    # eval(), also when the step raises
+    sd = {k: v.clone() for k, v in pnet.state_dict().items()}
+    unfrozen = train.make_train_step(pnet, opt, BatchSpec(), train_bn=True, device="cpu")
+    state = train.create_train_state(pnet, opt, TrainConfig())
+    state, ul = unfrozen(state, batch)
+    assert state.step == 1 and torch.isfinite(ul["total_loss"]) and not pnet.training
+    assert not torch.equal(sd["base_net.bn1.running_var"], pnet.base_net.bn1.running_var)
+    with pytest.raises(ValueError, match="divisible"):
+        train.make_train_step(pnet, opt, BatchSpec(), train_bn=True, accum_steps=3,
+                              device="cpu")(state, batch)
+    assert not pnet.training
+    pnet.load_state_dict(sd)
     with pytest.raises(ValueError):
         train.make_optimizer(TrainConfig(optimizer="lbfgs"), pnet)
     other = train.create_train_state(pnet, train.make_optimizer(TrainConfig(), pnet),

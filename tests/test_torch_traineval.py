@@ -5,8 +5,12 @@
   ``args_to_config`` gives the JAX package's config, JSON for JSON;
 - the flags of later slices raise, and without ``OBMAN_PLATFORM=cpu`` the
   CLI wants a GPU; ``--mano_assets <dir>`` reads real MANO pkl files;
+- ``--loader_processes`` trains the run the threaded loader trains, bit
+  for bit; ``--no_freeze_batchnorm`` with ``--fc_dropout`` trains (the
+  running statistics move) and its dropout masks follow ``--manual_seed``;
 - 2 epochs and a resumed third equal 3 straight epochs bitwise (weights,
-  optimizer moments, counters, logged losses), lr and regul decay on;
+  running statistics, optimizer moments, counters, logged losses), lr and
+  regul decay on, with frozen BN and with unfrozen BN and dropout;
 - ``main()`` end to end: train with device augmentation, gradient
   accumulation, a freeze flag, result dumps and a profiler trace; then
   evaluate the checkpoint (its val metrics equal the logged ones), an
@@ -71,8 +75,6 @@ def test_args_to_config_matches_jax(argv):
 
 @pytest.mark.parametrize("extra,slice_name", [
     (["--distributed"], "DDP"),
-    (["--loader_processes"], "DDP"),
-    (["--no_freeze_batchnorm"], "unfrozen-BN"),
     (["--compute_dtype", "bfloat16"], "bf16"),
     (["--geometry_dtype", "float32_select"], "geometry_dtype"),
     (["--no_atlas_mesh"], "random-cloud"),
@@ -138,12 +140,12 @@ DECAY = ["--lr", "1e-3", "--lr_decay_step", "1", "--lr_decay_gamma", "0.5",
          "--regul_decay_step", "1", "--regul_decay_gamma", "0.5", "--snapshot", "1"]
 
 
-def test_two_epochs_and_a_resumed_third_equal_three_straight(cpu, tmp_path):
+def _assert_resume_equals_straight(tmp_path, extra):
     straight, split = str(tmp_path / "straight"), str(tmp_path / "split")
-    pcli.main(BASE + DECAY + ["--exp_id", straight, "--epochs", "3"])
-    pcli.main(BASE + DECAY + ["--exp_id", split, "--epochs", "2"])
-    state, _ = pcli.main(BASE + DECAY + ["--exp_id", split, "--epochs", "3",
-                                         "--resume", split])
+    pcli.main(BASE + DECAY + extra + ["--exp_id", straight, "--epochs", "3"])
+    pcli.main(BASE + DECAY + extra + ["--exp_id", split, "--epochs", "2"])
+    state, _ = pcli.main(BASE + DECAY + extra + ["--exp_id", split, "--epochs", "3",
+                                                 "--resume", split])
     assert state.step == 6
     a, b = _ckpt(straight), _ckpt(split)
     assert a["epoch"] == b["epoch"] == 3 and a["step"] == b["step"] == 6
@@ -165,6 +167,51 @@ def test_two_epochs_and_a_resumed_third_equal_three_straight(cpu, tmp_path):
     assert [v["regul_scale"] for _, v in _logged(straight, "train")] == [1.0, 0.5, 0.25]
     for n in (1, 2, 3):
         assert os.path.exists(os.path.join(straight, f"checkpoint_{n}.pth.tar"))
+    return a
+
+
+def test_two_epochs_and_a_resumed_third_equal_three_straight(cpu, tmp_path):
+    _assert_resume_equals_straight(tmp_path, [])
+
+
+UNFROZEN = ["--no_freeze_batchnorm", "--fc_dropout", "0.3"]
+
+
+def test_unfrozen_bn_resume_equals_three_straight(cpu, tmp_path):
+    """The running statistics (and their ``num_batches_tracked``) travel in
+    the checkpoint; the dropout masks are a function of the seed and the
+    update count, so the resumed epoch draws the straight run's."""
+    a = _assert_resume_equals_straight(tmp_path, UNFROZEN)
+    assert int(a["state_dict"]["base_net.bn1.num_batches_tracked"]) == 6
+    assert "mano_branch.base_layer.1.weight" in a["state_dict"]  # after its Dropout
+
+
+@pytest.mark.parametrize("extra", [["--loader_processes"], UNFROZEN],
+                         ids=["loader_processes", "no_freeze_batchnorm"])
+def test_flags_of_this_slice_run(cpu, tmp_path, extra):
+    """``--loader_processes`` gives the threaded run's weights bit for bit;
+    unfrozen BN moves every running statistic, and another
+    ``--manual_seed`` draws other dropout masks."""
+    runs = {}
+    for name, flags in (("base", []), ("flag", extra)):
+        state, metrics = pcli.main(BASE + CONTACT + flags + [
+            "--exp_id", str(tmp_path / name), "--epochs", "1"])
+        assert all(np.isfinite(v) for s in metrics["total_loss"].values() for v in s.values())
+        runs[name] = {k: v.clone() for k, v in state.net.state_dict().items()}
+        assert not state.net.training
+    base, flag = runs["base"], runs["flag"]
+    if extra == ["--loader_processes"]:
+        assert all(torch.equal(v, flag[k]) for k, v in base.items())
+        return
+    stats = [k for k in flag if k.endswith(("running_mean", "running_var"))]
+    assert stats and all(not torch.equal(flag[k], base[k]) for k in stats)
+    other, _ = pcli.main(BASE + CONTACT + extra + ["--exp_id", str(tmp_path / "seed1"),
+                                                   "--epochs", "1", "--manual_seed", "1"])
+    again, _ = pcli.main(BASE + CONTACT + extra + ["--exp_id", str(tmp_path / "again"),
+                                                   "--epochs", "1"])
+    w = "mano_branch.base_layer.1.weight"  # Dropout, Linear, ReLU, ...
+    assert torch.equal(again.net.state_dict()[w], flag[w])
+    assert not torch.equal(other.net.state_dict()[w], flag[w])
 
 
 CONTACT = ["--atlas_predict_trans", "--contact_lambda", "0.167", "--collision_lambda", "0.167",
