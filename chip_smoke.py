@@ -72,10 +72,27 @@ each fatal on failure:
    the port, against the live model (rtol 1e-5, atol 2e-3); (d) cold start
    of a live ``DemoModel`` and of an ``ExportedModel``, each in a fresh
    process; (e) ``video_demo`` over 256 480x640 PNGs at ``--batch 64``, then
-   with ``--attention --render --max_frames 8``, and ``image_demo``.
+   with ``--attention --render --max_frames 8``, and ``image_demo``;
+9. the precision rungs (JAX bench.py:107-146), at full width: (a)
+   ``hand_object_bf16`` and ``contact_bf16`` through ``make_infer`` at B=256:
+   launches per forward, frames/s, the max abs delta (mm) against the
+   float32 net on the same weights (a report), the eval BN kernels; (b)
+   the bf16 train step of ``contact_bf16``, ``contact_bf16_f32sel`` and
+   ``contact_bf16_bf16sel`` (B=256, frozen BN): the first step's loss and
+   gradients against the card's float32 step (TF32 off) within
+   ``BF16_LOSS_REL`` and ``BF16_GRAD_REL``, launches per step, a falling
+   loss over 10 steps, samples/s on the kernel route and with
+   ``use_kernel=False`` (the rung's own plane), and one unfrozen-BN bf16
+   step with float32 running statistics; (c) the rungs' selection planes
+   at 256x778x642 and 256x600x642 against the kernel route: the differing
+   selections counted, each within its near-tie bound; (d) one-epoch
+   ``cli.traineval`` runs with ``--compute_dtype bfloat16`` (contact flags)
+   and ``--no_atlas_mesh``, then the bf16 experiment reloaded in
+   ``DemoModel`` and exported, exported against live.
 
 Output: progress lines, then one JSON line ``{"kernels": [...]}``, one
 JSON line ``{"traineval": {...}}``, one JSON line ``{"serving": {...}}``,
+one JSON line ``{"precision": {...}}``,
 the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 With no GPU, or without the rest of the repository beside it, it exits
@@ -897,7 +914,11 @@ def _profile(fn, label, unit):
             f"wall_ms_per_{unit}": wall / 3 * 1e3}
 
 
-def _build_net(contact: bool, seed: int, device):
+def _build_net(contact: bool, seed: int, device, **model_kw):
+    """The bench configurations (bench.py:100-146): hand_object, or contact
+    with ``contact``; ``model_kw`` sets ``compute_dtype`` and
+    ``geometry_dtype`` (hand_object_bf16, contact_bf16*). The weights are
+    the seed's, whatever the dtypes."""
     from obman_train_tpu_torch.assets import synthetic_mano_assets
     from obman_train_tpu_torch.config import AtlasConfig, ContactConfig, ModelConfig
     from obman_train_tpu_torch.models import build_handnet
@@ -907,6 +928,7 @@ def _build_net(contact: bool, seed: int, device):
         atlas=AtlasConfig(predict_trans=True, predict_scale=True),
         contact=(ContactConfig(contact_lambda=0.167, collision_lambda=0.167)
                  if contact else ContactConfig()),
+        **model_kw,
     )
     net = build_handnet(cfg, synthetic_mano_assets("right"),
                         synthetic_mano_assets("left"), device="cpu")
@@ -1085,13 +1107,13 @@ TRAINEVAL_FILES = ("checkpoint.pth.tar", "model_best.pth.tar", "opt.json", "logs
                    "logs/val.txt", "metrics.json", "pcks/val/epoch_1.pkl")
 
 
-def _traineval_argv(exp):
+def _traineval_argv(exp, contact=True):
     return ["--train_datasets", "synthetic", "--val_datasets", "synthetic",
             "--mano_assets", "synthetic", "--synthetic_size", str(TRAINEVAL_SIZE),
             "--image_size", str(IMAGE), "--train_batch", str(B_FULL),
-            "--test_batch", str(B_FULL), "--contact_lambda", "0.167",
-            "--collision_lambda", "0.167", "--atlas_predict_trans", "--atlas_predict_scale",
-            "--display_freq", "0", "--exp_id", exp]
+            "--test_batch", str(B_FULL), "--atlas_predict_trans", "--atlas_predict_scale",
+            "--display_freq", "0", "--exp_id", exp] + (
+                ["--contact_lambda", "0.167", "--collision_lambda", "0.167"] if contact else [])
 
 
 def _logged(exp, split):
@@ -1610,6 +1632,365 @@ def phase_serving(exp, tmp):
     return result
 
 
+# Phase 9, the precision rungs (JAX bench.py:107-146, stages :963-976). The
+# bf16 step's first loss and gradients are held against the card's float32
+# step on the same weights and batch, at about twice the whole-gradient gap
+# (relative L2) and three times the loss gap between JAX's own bf16 and
+# float32 steps that tests/test_torch_bf16.py computes at B=2, 64 px.
+BF16_GRAD_REL = 0.15
+BF16_LOSS_REL = 1e-2
+RUNG_CONFIGS = (("contact_bf16", "float32"), ("contact_bf16_f32sel", "float32_select"),
+                ("contact_bf16_bf16sel", "bfloat16"))
+# near-tie bounds, times the plane's largest magnitude: a float32 selection
+# plane against the kernel's direct differences may pick another
+# neighbour only where its rounding (a few ulp of that magnitude) cannot
+# separate two pairs; the card's bf16 plane against the CPU port's (the
+# JAX package's selection, tests/test_torch_geometry_dtype.py) only within
+# the bf16 plane's resolution, JAX's bound (tests/test_geometry_ops.py:215-235).
+# Against the kernel the bf16 plane's selections are counted, not held: its
+# rounding can exceed that bound (the JAX package's own on the CPU does)
+NEAR_TIE = {"float32_select": 2.0 ** -20, "bfloat16": 2.0 ** -8}
+SERVE_LAUNCHES = {"raytri_count": 1, "nn_dir_argmin": 2}
+
+
+def _counted(fn):
+    """``fn()`` with the kernel counts set to 0 just before it and read
+    just after: ``(result, launches)``."""
+    import torch
+
+    from obman_train_tpu_torch.ops.kernels import LAUNCHES
+
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in LAUNCHES.items() if v}
+
+
+def _norm_kernels(fn):
+    """The names of the normalization kernels one call of ``fn`` runs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    return sorted(n[:90] for n in names if re.search(r"bn|norm", n, re.I))
+
+
+def _precision_serving(dev):
+    """(a) hand_object_bf16 and contact_bf16 through ``make_infer`` at
+    B=256, uint8 frames on the device: launches per forward, frames/s over
+    three windows, and the max abs delta (mm) of the outputs against the
+    float32 net on the same weights (a report, as JAX bench.py:440-461)."""
+    import torch
+
+    from obman_train_tpu_torch.infer import make_infer
+
+    set_tf32(False)
+    frames, sides = _frames(B_FULL, IMAGE, seed=1, device=dev)
+    out = {}
+    for name, contact in (("hand_object_bf16", False), ("contact_bf16", True)):
+        with torch.inference_mode():
+            ref = make_infer(_build_net(contact, 0, dev))(frames, sides)
+        net = _build_net(contact, 0, dev, compute_dtype="bfloat16")
+        infer = make_infer(net)
+        got, launches = _counted(lambda: infer(frames, sides))
+        if launches != (SERVE_LAUNCHES if contact else {}):
+            fail(f"{name} forward launched {launches}")
+        if got["verts"].dtype != torch.float32 or got["objpoints3d"].dtype != torch.bfloat16:
+            fail(f"{name} output dtypes {got['verts'].dtype}, {got['objpoints3d'].dtype}")
+        keys = ("verts", "joints", "objpoints3d")
+        if not all(torch.isfinite(got[k]).all() for k in keys):
+            fail(f"{name}: non-finite outputs")
+        delta = {k: float((got[k].float() - ref[k]).abs().max()) for k in keys}
+        fps = _fps(infer, frames, sides)
+        entry = {"launches_per_forward": launches, "frames_per_s": fps,
+                 "max_abs_delta_mm_vs_float32": delta,
+                 "precision": "bf16 compute; float32 ops with TF32 off"}
+        if contact:
+            with torch.inference_mode():
+                entry["eval_bn_kernels"] = _norm_kernels(lambda: infer(frames, sides))
+        log(f"precision (a) {name} via make_infer, B={B_FULL}: launches {launches}, frames/s "
+            f"{json.dumps(fps)}, max abs delta vs float32 (mm) {json.dumps(delta)}"
+            + (f"; eval BN kernels {entry['eval_bn_kernels']}" if contact else ""))
+        out[name] = entry
+        del net, infer, got, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def _first_step(net, batch):
+    """The total loss and gradients of one frozen-BN forward + backward."""
+    from obman_train_tpu_torch.models import BatchSpec
+
+    net.zero_grad(set_to_none=True)
+    total, _, _ = net(batch, BatchSpec())
+    total.backward()
+    return float(total.detach()), {n: p.grad.detach().clone()
+                                   for n, p in net.named_parameters() if p.grad is not None}
+
+
+def _rel_l2(got, want):
+    import torch
+
+    keys = sorted(want)
+    a = torch.cat([got[k].double().flatten() for k in keys])
+    b = torch.cat([want[k].double().flatten() for k in keys])
+    return float((a - b).norm() / b.norm())
+
+
+def _precision_train(dev):
+    """(b) the bf16 train steps of the three rungs at B=256, frozen BN:
+    the first step held against the float32 step, launches per step, a
+    falling loss over 10 steps, samples/s on the kernel route and with
+    ``use_kernel=False`` (the rung's own plane on the card) in turns, a
+    breakdown of the contact_bf16 step; one unfrozen-BN bf16 step."""
+    import torch
+
+    from obman_train_tpu_torch import train
+    from obman_train_tpu_torch.config import TrainConfig
+    from obman_train_tpu_torch.models import BatchSpec
+    from obman_train_tpu_torch.ops import chamfer
+
+    set_tf32(False)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_gt(B_FULL, IMAGE, 1).items()}
+    ref = _build_net(True, 0, dev)
+    loss32, g32 = _first_step(ref, batch)
+    del ref
+    rule = chamfer._use_kernel
+    plane_rule = lambda x, y, use_kernel: (  # noqa: E731
+        False if use_kernel == "auto" else rule(x, y, use_kernel))
+    out = {}
+    for name, gd in RUNG_CONFIGS:
+        net = _build_net(True, 0, dev, compute_dtype="bfloat16", geometry_dtype=gd)
+        loss16, g16 = _first_step(net, batch)
+        grad_rel, loss_rel = _rel_l2(g16, g32), abs(loss16 - loss32) / abs(loss32)
+        if set(g16) != set(g32) or grad_rel > BF16_GRAD_REL or loss_rel > BF16_LOSS_REL:
+            fail(f"{name}: first step against float32: gradient rel L2 {grad_rel} (limit "
+                 f"{BF16_GRAD_REL}), loss rel {loss_rel} (limit {BF16_LOSS_REL})")
+        del g16
+        cfg = TrainConfig()
+        opt = train.make_optimizer(cfg, net)
+        state = train.create_train_state(net, opt, cfg)
+        step = train.make_train_step(net, opt, BatchSpec(), device=dev)
+        (state, losses), launches = _counted(lambda: step(state, batch))
+        if launches != TRAIN_LAUNCHES:
+            fail(f"{name} step launched {launches}, want {TRAIN_LAUNCHES}")
+        first = float(losses["total_loss"])
+        for _ in range(9):
+            state, losses = step(state, batch)
+        last = float(losses["total_loss"])
+        if not last < first:
+            fail(f"{name}: the loss did not fall over 10 steps: {first} -> {last}")
+        try:
+            chamfer._use_kernel = plane_rule
+            _, plane_launches = _counted(lambda: step(state, batch))
+        finally:
+            chamfer._use_kernel = rule
+        # the kernel route and use_kernel=False (the rung's own plane) in
+        # turns kernel, plane, plane, kernel
+        ab = _route_ab(state, step, batch)
+        out[name] = {
+            "geometry_dtype": gd, "first_step_grad_rel_l2_vs_float32": grad_rel,
+            "first_step_loss_rel_vs_float32": loss_rel, "launches_per_step": launches,
+            "loss_step1": first, "loss_step10": last,
+            "samples_per_s": {"kernel": ab["samples_per_s"]["kernel"],
+                              "use_kernel_false": ab["samples_per_s"]["plane"]},
+            "launches_per_step_use_kernel_false": plane_launches,
+            "peak_gib": {"kernel": ab["peak_gib"]["kernel"],
+                         "use_kernel_false": ab["peak_gib"]["plane"]},
+            "precision": "bf16 compute; float32 ops with TF32 off"}
+        if name == "contact_bf16":
+            out[name]["breakdown"] = _train_breakdown(net, state, step, batch, name)
+        log(f"precision (b) {name} step, B={B_FULL}, frozen BN: vs float32 grad rel L2 "
+            f"{grad_rel:.4e} (limit {BF16_GRAD_REL}), loss rel {loss_rel:.3e}; launches "
+            f"{launches}; loss {first} -> {last}; use_kernel=False launches {plane_launches}")
+        del net, opt, state, step
+        torch.cuda.empty_cache()
+    # one unfrozen-BN bf16 step: float32 running statistics that move,
+    # finite gradients
+    net = _build_net(True, 0, dev, compute_dtype="bfloat16")
+    before = {k: v.clone() for k, v in net.state_dict().items() if k.endswith("running_var")}
+    cfg = TrainConfig()
+    opt = train.make_optimizer(cfg, net)
+    state = train.create_train_state(net, opt, cfg)
+    step = train.make_train_step(net, opt, BatchSpec(), train_bn=True, device=dev)
+    (state, losses), launches = _counted(lambda: step(state, batch))
+    stats = {k: v for k, v in net.state_dict().items() if k in before}
+    grads_ok = all(torch.isfinite(p.grad).all() for p in net.parameters() if p.grad is not None)
+    if not grads_ok or not torch.isfinite(losses["total_loss"]) or any(
+            v.dtype != torch.float32 or not torch.isfinite(v).all() for v in stats.values()) \
+            or all(torch.equal(stats[k], before[k]) for k in stats):
+        fail("the unfrozen bf16 step: non-finite gradients or loss, or running statistics "
+             "not float32, not finite or unmoved")
+    out["contact_bf16_unfrozen"] = {"launches_per_step": launches,
+                                    "loss": float(losses["total_loss"]),
+                                    "running_stats_dtype": "float32"}
+    log(f"precision (b) contact_bf16 unfrozen BN step: launches {launches}, loss "
+        f"{float(losses['total_loss'])}, {len(stats)} running variances float32 and moved")
+    del net, opt, state, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _selection_gaps(q, s, got, want):
+    """How many selections differ, and the largest gap between the exact
+    values of the two pairs selected (mm^2, float64)."""
+    import torch
+
+    differ = got != want
+    exact = lambda a: ((q.double() - torch.gather(  # noqa: E731
+        s.double(), 1, a[..., None].expand(-1, -1, 3))) ** 2).sum(-1)
+    gap = (exact(got) - exact(want)).abs()[differ]
+    return int(differ.sum()), float(gap.max()) if gap.numel() else 0.0
+
+
+def _precision_planes():
+    """(c) the rungs' selection planes on the card (``use_kernel=False``) at
+    the contact and atlas shapes: the float32_select plane against the
+    kernel route and the bf16 plane against the CPU port's, each
+    differing selection within its near-tie bound; the bf16 plane's
+    differences from the kernel counted; the time of each route."""
+    import torch
+
+    from obman_train_tpu_torch.ops import chamfer
+
+    out = {}
+    for label, (N, M) in (("256x778x642", (778, 642)), ("256x600x642", (600, 642))):
+        x, y = nn_scene(B_FULL, N, M, seed=N + M)
+        kern = chamfer.chamfer_min_sqdist(x, y, use_kernel=True)
+        mag = float((x.double() ** 2).sum(-1).max() + (y.double() ** 2).sum(-1).max())
+        entry = {"kernel_ms": cuda_ms(lambda: chamfer.chamfer_min_sqdist(x, y, use_kernel=True),
+                                      iters=5)}
+        for gd, dt in (("float32_select", torch.float32), ("bfloat16", torch.bfloat16)):
+            sel = chamfer.chamfer_min_sqdist(x, y, use_kernel=False, plane_dtype=dt)
+            row = {"plane_ms": cuda_ms(lambda: chamfer.chamfer_min_sqdist(
+                x, y, use_kernel=False, plane_dtype=dt), iters=5)}
+            ref = kern if gd == "float32_select" else [
+                None if t is None else t.to(x.device) for t in chamfer.chamfer_min_sqdist(
+                    x.cpu(), y.cpu(), use_kernel=False, plane_dtype=dt)]
+            for i, (q, s) in ((1, (x, y)), (3, (y, x))):
+                n, worst = _selection_gaps(q, s, sel[i], ref[i])
+                if worst > NEAR_TIE[gd] * mag:
+                    fail(f"{gd} plane at {label}: a selection {worst} mm^2 off the "
+                         f"reference's, above the near-tie bound {NEAR_TIE[gd] * mag}")
+                d = {"differing_selections": n, "of": sel[i].numel(),
+                     "worst_value_gap_mm2": worst, "bound_mm2": NEAR_TIE[gd] * mag,
+                     "against": "kernel" if gd == "float32_select" else "cpu_port_plane"}
+                if gd == "bfloat16":
+                    d["vs_kernel_differing"], d["vs_kernel_worst_gap_mm2"] = _selection_gaps(
+                        q, s, sel[i], kern[i])
+                row["x2y" if i == 1 else "y2x"] = d
+            entry[gd] = row
+        log(f"precision (c) rung planes at {label} vs the kernel route: {json.dumps(entry)}")
+        out[label] = entry
+    return out
+
+
+def _precision_traineval(tmp):
+    """(d) two one-epoch ``cli.traineval`` runs at B=256: ``--compute_dtype
+    bfloat16`` with the contact flags, and ``--no_atlas_mesh`` (without the
+    contact terms, which need the mesh); samples/s and the data-wait share
+    of each train pass; then the bf16 experiment reloaded in ``DemoModel``
+    and exported for cuda, exported against live."""
+    import numpy as np
+    import torch
+
+    from obman_train_tpu_torch.cli import traineval
+    from obman_train_tpu_torch.demo import DemoModel
+    from obman_train_tpu_torch.demo.export import export_model, load_exported
+    from obman_train_tpu_torch.ops.kernels import LAUNCHES
+    from obman_train_tpu_torch.train import loop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True  # a user's process
+    original, passes = loop.epoch_pass, []
+
+    def timed(loader, state, epoch, train=True, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = original(loader, state, epoch, train=train, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = len(loader)
+        passes.append({"train": train, "steps": steps, "samples_per_s": steps * B_FULL / wall,
+                       "data_wait_share": out[1].averages()["data_time"] * steps / wall})
+        return out
+
+    runs = {"bf16": (os.path.join(tmp, "bf16"), ["--compute_dtype", "bfloat16"], True),
+            "no_atlas_mesh": (os.path.join(tmp, "cloud"), ["--no_atlas_mesh"], False)}
+    out = {}
+    loop.epoch_pass = timed
+    try:
+        for name, (exp, extra, contact) in runs.items():
+            argv = _traineval_argv(exp, contact)
+            passes.clear()
+            LAUNCHES.clear()
+            traineval.main(argv + ["--epochs", "1"] + extra)
+            torch.cuda.synchronize()
+            for split in ("train", "val"):
+                for epoch, values in _logged(exp, split):
+                    bad = [k for k, v in values.items() if not np.isfinite(v)]
+                    if bad:
+                        fail(f"traineval {name}: non-finite {split} values: {bad}")
+            tr = [p for p in passes if p["train"]]
+            out[name] = {"samples_per_s": [p["samples_per_s"] for p in tr],
+                         "data_wait_share": [p["data_wait_share"] for p in tr],
+                         "launches": {k: v for k, v in LAUNCHES.items() if v},
+                         "tf32": "cuDNN on, matmul off (PyTorch's default)"}
+            log(f"precision (d) traineval {name}, 1 epoch at B={B_FULL}: {json.dumps(out[name])}")
+    finally:
+        loop.epoch_pass = original
+    set_tf32(False)
+    model = DemoModel(exp_dir=runs["bf16"][0])
+    if model.cfg.model.compute_dtype != "bfloat16" or model.epoch != 1:
+        fail(f"DemoModel reloaded {model.cfg.model.compute_dtype} at epoch {model.epoch}")
+    path = os.path.join(tmp, "bf16.pt2")
+    t0 = time.perf_counter()
+    export_model(model, path, platforms=[model.device.type])
+    export_s = time.perf_counter() - t0
+    serve = load_exported(path)
+    frames, sides = _frames(B_FULL, IMAGE, seed=5, device=model.device)
+    flip = (torch.arange(B_FULL, device=model.device) % 2) == 1
+    live = model._infer(model._variables, frames, sides, flip)
+    got = serve(frames, sides, flip)
+    errs = {}
+    for k, v in live.items():
+        if got[k].dtype != v.dtype:
+            fail(f"exported {k} is {got[k].dtype}, live {v.dtype}")
+        # a bf16 output to its own resolution (one ulp, 2^-7 relative,
+        # tests/test_torch_bf16_serving.py), float32 to the float32 bound
+        rtol, atol = (2.0 ** -7, 0.0) if v.dtype == torch.bfloat16 else (1e-5, 2e-3)
+        diff = (got[k].float() - v.float()).abs()
+        errs[k] = float(diff.max())
+        if (diff > atol + rtol * v.float().abs()).any():
+            fail(f"exported bf16 {k} differs from live: max abs {errs[k]}")
+    out["export"] = {"export_s": export_s, "max_abs_err": errs,
+                     "output_dtypes": {k: str(v.dtype) for k, v in live.items()}}
+    log(f"precision (d) bf16 experiment in DemoModel, exported for cuda in {export_s:.1f} s: "
+        f"exported vs live at B={B_FULL}, max abs err {json.dumps(errs)}")
+    del model, serve
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_precision(tmp):
+    """Phase 9: the precision rungs (see the module docstring)."""
+    import torch
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    result = {"serving": _precision_serving(dev), "train": _precision_train(dev),
+              "planes": _precision_planes(), "traineval": _precision_traineval(tmp)}
+    result["seconds"] = time.perf_counter() - t0
+    log(f"precision phase: {result['seconds']:.1f} s")
+    return result
+
+
 def _optimizer_matches(state, saved):
     """Whether the optimizer's moments equal the saved ones."""
     import torch
@@ -1645,6 +2026,7 @@ def main() -> None:
             f"{json.dumps(te['train_samples_per_s'])} (epoch wall clock, TF32 "
             f"{json.dumps(te['tf32'])}), bare step {json.dumps(train['samples_per_s'])}")
         serving = phase_serving(te["exp"], tmp)
+        precision = phase_precision(tmp)
     # launches: K1-K3 from run (a) of the training entry point, the main path
     # of this slice (with one train step's beside them); the large-cloud
     # rows', from the large-cloud Chamfer path
@@ -1667,6 +2049,19 @@ def main() -> None:
             e["launches_figure_forward"] = figure.get(counter, 0)
             e["launches_figures_run"] = te["figures"]["launches"].get(counter, 0)
         e["launches_demo_path"] = serving["reload"]["demo_path_launches"].get(counter, 0)
+        if e["path"] == "traineval":  # phase 9's paths, each counted from 0
+            e["launches_precision_paths"] = {
+                **{f"{k}_forward": v["launches_per_forward"].get(counter, 0)
+                   for k, v in precision["serving"].items()},
+                **{f"{k}_step": v["launches_per_step"].get(counter, 0)
+                   for k, v in precision["train"].items()},
+                **{f"{k}_step_use_kernel_false":
+                   v["launches_per_step_use_kernel_false"].get(counter, 0)
+                   for k, v in precision["train"].items()
+                   if "launches_per_step_use_kernel_false" in v},
+                **{f"traineval_{k}_run": v["launches"].get(counter, 0)
+                   for k, v in precision["traineval"].items() if "launches" in v},
+            }
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [entry, *nn_entries]}), flush=True)
     print(json.dumps({"traineval": {
@@ -1680,6 +2075,7 @@ def main() -> None:
         "unfrozen_step": unfrozen,
         "passes": te["passes"]}}), flush=True)
     print(json.dumps({"serving": {"host_libraries": versions, **serving}}), flush=True)
+    print(json.dumps({"precision": precision}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

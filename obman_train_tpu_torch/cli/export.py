@@ -71,7 +71,8 @@ def main(argv=None) -> dict:
             out = serve(frame.to(dev), sides.to(dev), flip.to(dev))
             assert sorted(out) == sorted(live), (sorted(out), sorted(live))
             for k in live:
-                np.testing.assert_allclose(out[k].cpu().numpy(), live[k].cpu().numpy(),
+                np.testing.assert_allclose(out[k].float().cpu().numpy(),
+                                           live[k].float().cpu().numpy(),
                                            rtol=1e-5, atol=2e-3, err_msg=k)
         print(f"smoke OK: exported == live on {sorted(live)} for {info['platforms']}")
     return info

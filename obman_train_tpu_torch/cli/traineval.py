@@ -291,13 +291,6 @@ def check_ported(args) -> None:
     unported = [
         (args.distributed, "--distributed: multi-process training is the DDP "
                            "slice (ROADMAP queue 1, item 8)"),
-        (args.compute_dtype != "float32", f"--compute_dtype {args.compute_dtype}: the "
-                                          "bf16 slice (ROADMAP queue 1, item 4)"),
-        (args.geometry_dtype != "float32", f"--geometry_dtype {args.geometry_dtype}: "
-                                           "the geometry_dtype slice (ROADMAP queue 1, "
-                                           "item 5)"),
-        (not args.atlas_mesh, "--no_atlas_mesh: the random-cloud AtlasNet decoder "
-                              "slice (ROADMAP queue 1, item 5)"),
         (args.evaluate and args.save_results and not args.no_simulate,
          "simulation after --evaluate --save_results is the host-tooling slice "
          "(ROADMAP queue 1, item 6); pass --no_simulate"),

@@ -4,9 +4,10 @@ so an ``opt.json`` written by either package loads in the other to an
 equal config. Missing keys are backfilled from the defaults and unknown
 keys ignored, the reference's schema migration (reload.py:42-72).
 
-Only fp32 ``compute_dtype`` and the ``float32`` geometry path are ported so
-far; :class:`~obman_train_tpu_torch.models.handnet.HandNet` raises on the
-others.
+``compute_dtype`` takes ``float32`` or ``bfloat16`` and ``geometry_dtype``
+``float32``, ``float32_select`` or ``bfloat16`` (JAX :146-159);
+:class:`~obman_train_tpu_torch.models.handnet.HandNet` raises ``ValueError``
+on any other name.
 """
 
 from __future__ import annotations

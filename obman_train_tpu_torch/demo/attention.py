@@ -21,7 +21,8 @@ def stage_attention(inters: Sequence[torch.Tensor], frame_hw) -> np.ndarray:
 
     Args:
       inters: the (B, C, h, w) stage activations (NCHW, the port's layout),
-        tensors on any device or numpy arrays.
+        tensors on any device or numpy arrays; a bf16 encoder's are squared
+        and averaged in float32.
       frame_hw: (H, W) of the target frame.
     Returns a (B, H, W) float32 numpy map, normalised per sample.
     """

@@ -85,7 +85,14 @@ def export_model(model, out_path: str, platforms: Optional[Sequence[str]] = None
         device. Exporting for ``cuda`` needs a GPU.
       batch_size: pin a static batch; ``None`` exports a symbolic one.
     Returns an info dict (platforms, batch, image size, bytes written, path).
+
+    A random-cloud model (``atlas.mesh=False``) draws its sphere points in
+    the program (the points of seed 0, as ``DemoModel`` serves it), which
+    ``torch.export`` traces only at a concrete batch: pin ``batch_size``.
     """
+    if not model.cfg.model.atlas.mesh and batch_size is None:
+        raise ValueError("a random-cloud model (atlas.mesh=False) exports with a pinned "
+                         "batch_size only: its sphere points are drawn per sample")
     size = model.image_size
     names = _platforms(model, platforms)
     blobs = {}

@@ -80,14 +80,21 @@ def to_device(device: torch.device, *arrays: np.ndarray):
         for a, o in zip(arrays, offsets))
 
 
+def _host_dtype(dtype: torch.dtype) -> torch.dtype:
+    # numpy has no bfloat16: a bf16 output (a bf16 net's object points)
+    # reaches the host as float32, which holds its values exactly
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
 class HostCopy:
     """A dict of output tensors copied to the host without blocking: on
     CUDA they are flattened into one float32 buffer on the device, copied
     in one go into pinned memory, and an event is recorded after the copy;
-    :meth:`get` waits on that event and returns numpy arrays."""
+    :meth:`get` waits on that event and returns numpy arrays (bf16 ones as
+    float32)."""
 
     def __init__(self, out: Dict[str, torch.Tensor]):
-        self.meta = [(k, tuple(v.shape), v.dtype) for k, v in out.items()]
+        self.meta = [(k, tuple(v.shape), _host_dtype(v.dtype)) for k, v in out.items()]
         self.event = None
         if any(v.is_cuda for v in out.values()):
             packed = torch.cat([v.detach().reshape(-1).to(torch.float32) for v in out.values()])
@@ -96,7 +103,7 @@ class HostCopy:
             self.event = torch.cuda.Event()
             self.event.record()
         else:
-            self.out = {k: v.detach() for k, v in out.items()}
+            self.out = {k: v.detach().to(_host_dtype(v.dtype)) for k, v in out.items()}
 
     def get(self) -> Dict[str, np.ndarray]:
         if self.event is None:

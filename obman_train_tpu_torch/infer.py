@@ -5,7 +5,9 @@
 runs ``HandNet`` with ``no_loss=True, force_hand=True, force_objects=True``
 on the net's device and returns a dict with ``verts`` (B,778,3), ``joints``
 (B,21,3), ``objpoints3d`` (B,642,3) and, when the config has contact or
-collision weights, ``contact_info``.
+collision weights, ``contact_info``, in the JAX package's dtypes: with
+``compute_dtype="bfloat16"`` the MANO outputs are float32 and
+``objpoints3d`` is bf16.
 """
 
 from __future__ import annotations

@@ -15,6 +15,11 @@ are the release checkpoints' keys: ``base_layer.{0,2}``, ``pose_reg``,
 - The MANO base MLP puts a :class:`Dropout` before each Linear (JAX
   branches.py:49-64), active in ``train()`` only, its mask drawn from the
   ``torch.Generator`` the caller passes.
+- ``dtype`` is the compute dtype of every Linear, Conv1d and BatchNorm1d
+  (JAX ``dtype=`` on each ``nn.Dense``/``nn.BatchNorm``; see
+  :mod:`~obman_train_tpu_torch.models.resnet`); None computes in the
+  parameters' own dtype. Mixed operands promote as ``jnp`` promotes them:
+  the template (bf16) beside float32 features concatenates to float32.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from torch import nn
 
 from obman_train_tpu_torch.assets.mano_assets import ManoAssets
 from obman_train_tpu_torch.models.mano import ManoLayer, mano_forward
-from obman_train_tpu_torch.models.resnet import BatchNorm1d
+from obman_train_tpu_torch.models.resnet import BatchNorm1d, Conv1d, Linear
 
 # Hard-coded StereoHands shape coefficients (reference: manobranch.py:34-47).
 STEREO_SHAPE = np.array(
@@ -42,8 +47,12 @@ SIDE_RIGHT = 0
 SIDE_LEFT = 1
 
 
-def _bn1d(c: int) -> BatchNorm1d:
-    return BatchNorm1d(c, eps=1e-5, momentum=0.1)
+def _bn1d(c: int, dtype: Optional[torch.dtype] = None) -> BatchNorm1d:
+    return BatchNorm1d(c, eps=1e-5, momentum=0.1, compute_dtype=dtype)
+
+
+def _conv1d(cin: int, cout: int, dtype: Optional[torch.dtype]) -> Conv1d:
+    return Conv1d(cin, cout, 1, compute_dtype=dtype)
 
 
 class Dropout(nn.Module):
@@ -77,14 +86,15 @@ class AbsoluteBranch(nn.Module):
     """Tiny MLP head (reference: absolutebranch.py:4-20): ``decoder`` is
     Linear+ReLU pairs, then ``final_layer``."""
 
-    def __init__(self, in_dim: int, hidden: Sequence[int], out_dim: int = 3):
+    def __init__(self, in_dim: int, hidden: Sequence[int], out_dim: int = 3,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         layers = []
         for h in hidden:
-            layers += [nn.Linear(in_dim, h), nn.ReLU()]
+            layers += [Linear(in_dim, h, compute_dtype=dtype), nn.ReLU()]
             in_dim = h
         self.decoder = nn.Sequential(*layers)
-        self.final_layer = nn.Linear(in_dim, out_dim)
+        self.final_layer = Linear(in_dim, out_dim, compute_dtype=dtype)
 
     def forward(self, x):
         return self.final_layer(self.decoder(x))
@@ -107,6 +117,7 @@ class ManoBranch(nn.Module):
         use_pca: bool = True,
         adapt_skeleton: bool = False,
         dropout: float = 0.0,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.ncomps = ncomps
@@ -117,14 +128,16 @@ class ManoBranch(nn.Module):
         for inp, out in zip(neurons[:-1], neurons[1:]):
             if dropout:
                 layers.append(Dropout(dropout))
-            layers += [nn.Linear(inp, out), nn.ReLU()]
+            layers += [Linear(inp, out, compute_dtype=dtype), nn.ReLU()]
         self.base_layer = nn.Sequential(*layers)
         pose_size = (ncomps + 3) if use_pca else 16 * 9
-        self.pose_reg = nn.Linear(neurons[-1], pose_size)
+        self.pose_reg = Linear(neurons[-1], pose_size, compute_dtype=dtype)
         self.shape_reg = (
-            nn.Sequential(nn.Linear(neurons[-1], 10)) if use_shape else None
+            nn.Sequential(Linear(neurons[-1], 10, compute_dtype=dtype))
+            if use_shape else None
         )
-        self.trans_reg = nn.Linear(neurons[-1], 3) if use_trans else None
+        self.trans_reg = (Linear(neurons[-1], 3, compute_dtype=dtype)
+                          if use_trans else None)
         if adapt_skeleton:
             self.right_skeleton_reg = nn.Linear(21, 21, bias=False)
             self.left_skeleton_reg = nn.Linear(21, 21, bias=False)
@@ -159,8 +172,9 @@ class ManoBranch(nn.Module):
             shape = None
         trans = self.trans_reg(base) if self.trans_reg is not None else None
 
-        # MANO runs in at least float32 whatever the encoder's dtype (JAX
-        # :130-142); a float64 net (a reference run on the CPU) keeps float64
+        # MANO runs in at least float32 whatever the heads' dtype (JAX
+        # :140-151): pose, shape and trans are cast before it; a float64 net
+        # (a reference run on the CPU) keeps float64
         geo = torch.promote_types(features.dtype, torch.float32)
         kw = dict(
             betas=None if shape is None else shape.to(geo),
@@ -195,16 +209,16 @@ class PointGenCon(nn.Module):
     scaled by ``out_factor`` (reference: atlasutils.py:42-75)."""
 
     def __init__(self, bottleneck_size: int, out_factor: float = 200.0,
-                 use_tanh: bool = False):
+                 use_tanh: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         b = bottleneck_size
-        self.conv1 = nn.Conv1d(b, b, 1)
-        self.conv2 = nn.Conv1d(b, b // 2, 1)
-        self.conv3 = nn.Conv1d(b // 2, b // 4, 1)
-        self.conv4 = nn.Conv1d(b // 4, 3, 1)
-        self.bn1 = _bn1d(b)
-        self.bn2 = _bn1d(b // 2)
-        self.bn3 = _bn1d(b // 4)
+        self.conv1 = _conv1d(b, b, dtype)
+        self.conv2 = _conv1d(b, b // 2, dtype)
+        self.conv3 = _conv1d(b // 2, b // 4, dtype)
+        self.conv4 = _conv1d(b // 4, 3, dtype)
+        self.bn1 = _bn1d(b, dtype)
+        self.bn2 = _bn1d(b // 2, dtype)
+        self.bn3 = _bn1d(b // 4, dtype)
         self.out_factor = out_factor
         self.use_tanh = use_tanh
 
@@ -222,13 +236,14 @@ class DecoderBlock(nn.Module):
     """Residual decoder block (reference: atlasutils.py:78-103)."""
 
     def __init__(self, in_size: int, res_size: int = 256,
-                 out_factor: float = 1.0, residual: bool = True):
+                 out_factor: float = 1.0, residual: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv1 = nn.Conv1d(in_size, res_size, 1)
-        self.conv2 = nn.Conv1d(res_size, res_size, 1)
-        self.conv3 = nn.Conv1d(res_size, 3, 1)
-        self.bn1 = _bn1d(res_size)
-        self.bn2 = _bn1d(res_size)
+        self.conv1 = _conv1d(in_size, res_size, dtype)
+        self.conv2 = _conv1d(res_size, res_size, dtype)
+        self.conv3 = _conv1d(res_size, 3, dtype)
+        self.bn1 = _bn1d(res_size, dtype)
+        self.bn2 = _bn1d(res_size, dtype)
         self.out_factor = out_factor
         self.residual = residual
 
@@ -246,11 +261,11 @@ class PointGenConResidual(nn.Module):
     (reference: atlasutils.py:106-149)."""
 
     def __init__(self, bottleneck_size: int, res_size: int = 256,
-                 out_factor: float = 200.0):
+                 out_factor: float = 200.0, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.residual1 = DecoderBlock(bottleneck_size, res_size, 1.0, True)
-        self.residual2 = DecoderBlock(bottleneck_size, res_size, 1.0, True)
-        self.residual3 = DecoderBlock(bottleneck_size, res_size, 1.0, False)
+        self.residual1 = DecoderBlock(bottleneck_size, res_size, 1.0, True, dtype)
+        self.residual2 = DecoderBlock(bottleneck_size, res_size, 1.0, True, dtype)
+        self.residual3 = DecoderBlock(bottleneck_size, res_size, 1.0, False, dtype)
         self.out_factor = out_factor
 
     def forward(self, x):  # (B, C, N) -> (B, 3, N)
@@ -262,62 +277,104 @@ class PointGenConResidual(nn.Module):
 
 
 class AtlasBranch(nn.Module):
-    """Object decoder (reference: atlasbranch.py:13-150), inference on the
-    icosphere template ``test_verts``; the decode_scale final bias starts
-    at 1 (atlasbranch.py:61)."""
+    """Object decoder (reference: atlasbranch.py:13-150): mesh mode on the
+    icosphere template ``test_verts`` (:meth:`forward_inference`) and the
+    random-cloud mode of ``atlas.mesh=False`` (:meth:`forward`); the
+    decode_scale final bias starts at 1 (atlasbranch.py:61)."""
 
     def __init__(
         self,
         bottleneck_size: int,
         test_verts: np.ndarray,
         use_residual: bool = False,
+        points_nb: int = 600,
         use_tanh: bool = False,
         out_factor: float = 200.0,
         predict_trans: bool = False,
         predict_scale: bool = False,
         separate_encoder: bool = False,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         if use_residual:
             self.decoder = PointGenConResidual(3 + bottleneck_size,
-                                               out_factor=out_factor)
+                                               out_factor=out_factor, dtype=dtype)
         else:
-            self.decoder = PointGenCon(3 + bottleneck_size, out_factor, use_tanh)
+            self.decoder = PointGenCon(3 + bottleneck_size, out_factor, use_tanh, dtype)
         half = bottleneck_size // 2
         self.decode_trans = (
-            nn.Sequential(nn.Linear(bottleneck_size, half), nn.ReLU(),
-                          nn.Linear(half, 3))
+            nn.Sequential(Linear(bottleneck_size, half, compute_dtype=dtype), nn.ReLU(),
+                          Linear(half, 3, compute_dtype=dtype))
             if predict_trans else None
         )
         self.decode_scale = (
-            nn.Sequential(nn.Linear(bottleneck_size, half), nn.ReLU(),
-                          nn.Linear(half, 1))
+            nn.Sequential(Linear(bottleneck_size, half, compute_dtype=dtype), nn.ReLU(),
+                          Linear(half, 1, compute_dtype=dtype))
             if predict_scale else None
         )
         if predict_scale:
             with torch.no_grad():
                 self.decode_scale[2].bias.fill_(1.0)
         self.separate_encoder = separate_encoder
+        self.points_nb = int(points_nb)
+        self.dtype = dtype
         self.register_buffer(
             "test_verts",
             torch.from_numpy(np.asarray(test_verts, np.float32).copy()),
             persistent=False,
         )
 
+    def _decode(self, grid: torch.Tensor, features: torch.Tensor) -> torch.Tensor:
+        """grid (B, 3, N) and features (B, C) -> points (B, N, 3); the two
+        concatenate with jnp's promotion (JAX :302-306)."""
+        B, _, N = grid.shape
+        tiled = features[:, :, None].expand(B, features.shape[1], N)
+        return self.decoder(torch.cat([grid, tiled], dim=1)).transpose(1, 2).contiguous()
+
+    def forward(
+        self,
+        img_features: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        points: Optional[torch.Tensor] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Random-cloud mode (JAX :312-328, reference atlasbranch.py:78-108):
+        ``points_nb`` normal draws normalised onto the unit sphere, in the
+        compute dtype, decoded with the image features. The draws come from
+        ``generator`` (the ``jax.random`` stream cannot be reproduced);
+        ``points`` (B, N, 3) injects sphere points instead, for tests."""
+        B = img_features.shape[0]
+        dt = self.dtype or img_features.dtype
+        if points is None:
+            if generator is None:
+                raise ValueError("the random-cloud decoder needs an explicit "
+                                 "torch.Generator (or points)")
+            rand = torch.randn((B, self.points_nb, 3), generator=generator,
+                               device=img_features.device, dtype=dt)
+            points = rand / torch.sqrt(torch.sum(rand**2, dim=-1, keepdim=True) + 1e-12)
+        verts = self._decode(points.to(dt).transpose(1, 2), img_features)
+        if self.decode_trans is not None:
+            trans = self.decode_trans(img_features)
+            return {
+                "objpoints3d": verts + trans[:, None, :],
+                "objtrans": trans,
+                "objpointscentered3d": verts,
+            }
+        return {"objpoints3d": verts}
+
     def forward_inference(
         self,
         img_features: torch.Tensor,
         separate_encoder_features: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
-        """Mesh mode on the icosphere template (reference atlasbranch.py:110-150)."""
+        """Mesh mode on the icosphere template (reference atlasbranch.py:110-150);
+        the template is rounded to the compute dtype first (JAX :335-339)."""
         B = img_features.shape[0]
         dec_feats = (
             separate_encoder_features if self.separate_encoder else img_features
         )
         V = self.test_verts.shape[0]
-        grid = self.test_verts.t().to(dec_feats.dtype).expand(B, 3, V)
-        tiled = dec_feats[:, :, None].expand(B, dec_feats.shape[1], V)
-        verts = self.decoder(torch.cat([grid, tiled], dim=1)).transpose(1, 2).contiguous()
+        grid = self.test_verts.t().to(self.dtype or dec_feats.dtype).expand(B, 3, V)
+        verts = self._decode(grid, dec_feats)
 
         results = {}
         if self.decode_scale is not None:

@@ -20,6 +20,16 @@ statistics, no dropout; frozen-BN training is ``eval()`` with gradients
 on), ``train()`` is ``train=True`` (BN on batch statistics with flax's
 running-statistics update, dropout on, its mask from ``dropout_gen``). The
 contact block and the losses do not depend on the mode.
+
+``compute_dtype="bfloat16"`` builds the encoders, the adapter and every head
+to compute in bf16 on float32 parameters (JAX handnet.py:72-120); the
+encoder features are cast back to float32 (JAX :151, :159), MANO and the
+geometry stay float32, and the atlas outputs are bf16, promoted by the
+losses as ``jnp`` promotes them. ``geometry_dtype`` picks the selection
+plane of the Chamfer and contact nearest neighbours
+(:func:`~obman_train_tpu_torch.ops.chamfer.plane_dtype_for`).
+``atlas.mesh=False`` decodes a random unit-sphere cloud instead of the
+icosphere template (JAX :246-260), its points drawn from ``points_gen``.
 """
 
 from __future__ import annotations
@@ -38,8 +48,8 @@ from obman_train_tpu_torch.config import ModelConfig
 from obman_train_tpu_torch.device import DeviceLike, resolve_device
 from obman_train_tpu_torch.models.branches import AbsoluteBranch, AtlasBranch, ManoBranch
 from obman_train_tpu_torch.models.losses import compute_atlas_loss, compute_mano_loss, mse
-from obman_train_tpu_torch.models.resnet import resnet18, resnet50
-from obman_train_tpu_torch.ops.chamfer import min_sqdist_to
+from obman_train_tpu_torch.models.resnet import Linear, compute_dtype, resnet18, resnet50
+from obman_train_tpu_torch.ops.chamfer import min_sqdist_to, plane_dtype_for
 from obman_train_tpu_torch.ops.contact import ContainsFn, compute_contact_loss
 from obman_train_tpu_torch.ops.image import batched_color_jitter
 from obman_train_tpu_torch.ops.mesh import meshiou
@@ -78,53 +88,54 @@ class HandNet(nn.Module):
     def __init__(self, cfg: ModelConfig, mano_right: ManoAssets,
                  mano_left: ManoAssets):
         super().__init__()
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r}: only float32 is ported "
-                "(bf16 is ROADMAP queue 1, item 4)"
-            )
-        if cfg.geometry_dtype != "float32":
-            raise NotImplementedError(
-                f"geometry_dtype={cfg.geometry_dtype!r}: only float32 is ported "
-                "(ROADMAP queue 1, item 5)"
-            )
-        if not cfg.atlas.mesh:
-            raise NotImplementedError(
-                "atlas.mesh=False (the random-cloud decoder) is training-only "
-                "and not ported yet (ROADMAP queue 1, item 5)"
-            )
+        dtype = compute_dtype(cfg.compute_dtype)
+        self.plane_dtype = plane_dtype_for(cfg.geometry_dtype)
+        if not cfg.atlas.mesh and cfg.need_collisions:
+            raise ValueError("the contact block needs the icosphere mesh (atlas.mesh="
+                             "True): the random cloud has no faces")
         self.cfg = cfg
         feat = cfg.img_feature_size
         make_resnet = {18: resnet18, 50: resnet50}[int(cfg.resnet_version)]
-        self.base_net = make_resnet()
-        self.atlas_base_net = make_resnet() if cfg.atlas.separate_encoder else None
+        self.base_net = make_resnet(dtype)
+        self.atlas_base_net = make_resnet(dtype) if cfg.atlas.separate_encoder else None
         self.atlas_adapter = (
-            nn.Linear(feat, feat) if cfg.atlas.adapt_decoder else None
+            Linear(feat, feat, compute_dtype=dtype) if cfg.atlas.adapt_decoder else None
         )
         self.absolute_branch = (
-            AbsoluteBranch(feat + 3, (feat // 2,), 3)
+            AbsoluteBranch(feat + 3, (feat // 2,), 3, dtype)
             if (cfg.absolute_lambda or cfg.mano.lambda_joints2d) else None
         )
         self.scaletrans_branch = (
-            AbsoluteBranch(feat, (feat // 2,), 3) if cfg.mano.lambda_joints2d else None
+            AbsoluteBranch(feat, (feat // 2,), 3, dtype) if cfg.mano.lambda_joints2d
+            else None
         )
         m = cfg.mano
         self.mano_branch = ManoBranch(
             mano_right, mano_left, in_features=feat, ncomps=m.ncomps,
             base_neurons=tuple(m.base_neurons), center_idx=m.center_idx,
             use_shape=m.use_shape, use_trans=m.use_trans, use_pca=m.use_pca,
-            adapt_skeleton=m.adapt_skeleton, dropout=cfg.fc_dropout,
+            adapt_skeleton=m.adapt_skeleton, dropout=cfg.fc_dropout, dtype=dtype,
         )
         ico_verts, ico_faces = icosphere(cfg.atlas.ico_divisions)
         a = cfg.atlas
         self.atlas_branch = AtlasBranch(
-            feat, ico_verts, use_residual=a.use_residual, use_tanh=a.use_tanh,
-            out_factor=a.out_factor, predict_trans=a.predict_trans,
-            predict_scale=a.predict_scale, separate_encoder=a.separate_encoder,
+            feat, ico_verts, use_residual=a.use_residual, points_nb=a.points_nb,
+            use_tanh=a.use_tanh, out_factor=a.out_factor,
+            predict_trans=a.predict_trans, predict_scale=a.predict_scale,
+            separate_encoder=a.separate_encoder, dtype=dtype,
         )
         self.ico_faces_np = np.asarray(ico_faces)
         self.register_buffer(
             "ico_faces", torch.from_numpy(ico_faces.astype(np.int64)),
+            persistent=False,
+        )
+        # the edge regularizer's faces: the template's; on the random cloud
+        # the JAX package gathers the same faces from the cloud's points,
+        # its out-of-range indices clamped by jnp's gather (handnet.py:314,
+        # branches.py:312-328), and the port computes the same loss
+        self.register_buffer(
+            "loss_faces",
+            self.ico_faces if a.mesh else self.ico_faces.clamp(max=a.points_nb - 1),
             persistent=False,
         )
         # dense (V, V) Laplacian of the template, only when its loss is on
@@ -147,6 +158,7 @@ class HandNet(nn.Module):
         contains: Optional[ContainsFn] = None,
         contact: bool = True,
         dropout_gen: Optional[torch.Generator] = None,
+        points_gen: Optional[torch.Generator] = None,
     ) -> Tuple[Optional[torch.Tensor], Dict[str, Any], Dict[str, Any]]:
         """Returns ``(total_loss, results, losses)`` like the JAX
         ``HandNet.__call__`` with ``train=False``. ``regul_scale``
@@ -157,7 +169,9 @@ class HandNet(nn.Module):
         reads none of its outputs, and the JAX package's jitted demo program
         drops it as dead code (demo/inference.py:95-99). ``dropout_gen``
         draws the MANO MLP's dropout masks in ``train()`` with
-        ``fc_dropout > 0``."""
+        ``fc_dropout > 0``. ``points_gen`` draws the random-cloud decoder's
+        sphere points (``atlas.mesh=False``); without one they are the
+        points of seed 0, as the JAX eval step's ``PRNGKey(0)``."""
         if not contact and not no_loss:
             raise ValueError("contact=False needs no_loss=True: the losses read the block")
         cfg = self.cfg
@@ -176,9 +190,11 @@ class HandNet(nn.Module):
                     image, batch["aug_factors"], batch["aug_order"])
             image = image - 0.5
         image = image.permute(0, 3, 1, 2)  # NHWC -> NCHW view
-        features, _ = self.base_net(image)
+        # the features in at least float32 (JAX :151, :159); a float64 net
+        # (a reference copy on the CPU) keeps float64
+        features = _at_least_f32(self.base_net(image)[0])
         if cfg.atlas.separate_encoder:
-            atlas_infeatures, _ = self.atlas_base_net(image)
+            atlas_infeatures = _at_least_f32(self.atlas_base_net(image)[0])
             if return_features:
                 results["atlas_features"] = atlas_infeatures
         if return_features:
@@ -259,16 +275,22 @@ class HandNet(nn.Module):
             cfg.atlas.lambda_atlas or cfg.atlas.final_lambda_atlas
         )
         if predict_atlas:
-            atlas_features = (
-                self.atlas_adapter(features) if cfg.atlas.adapt_decoder else features
-            )
-            atlas_results = self.atlas_branch.forward_inference(
-                atlas_features,
-                separate_encoder_features=(
-                    atlas_infeatures if cfg.atlas.separate_encoder else None
-                ),
-            )
-            atlas_results["objfaces"] = self.ico_faces_np
+            if cfg.atlas.mesh:
+                atlas_features = (
+                    self.atlas_adapter(features) if cfg.atlas.adapt_decoder
+                    else features
+                )
+                atlas_results = self.atlas_branch.forward_inference(
+                    atlas_features,
+                    separate_encoder_features=(
+                        atlas_infeatures if cfg.atlas.separate_encoder else None
+                    ),
+                )
+                atlas_results["objfaces"] = self.ico_faces_np
+            else:
+                if points_gen is None:
+                    points_gen = torch.Generator(device=features.device).manual_seed(0)
+                atlas_results = self.atlas_branch(features, generator=points_gen)
 
             if contact and cfg.need_collisions and mano_results is not None:
                 c = cfg.contact
@@ -283,12 +305,14 @@ class HandNet(nn.Module):
                     contact_target=c.contact_target,
                     contact_sym=c.contact_sym,
                     contact_zones=c.contact_zones,
+                    geometry_dtype=cfg.geometry_dtype,
                     contains=contains,
                 )
                 if not no_loss:
                     if spec.has_verts3d and spec.has_objpoints3d:
                         dist_h2o_gt = min_sqdist_to(
-                            batch["verts3d"], batch["objpoints3d"]
+                            batch["verts3d"], batch["objpoints3d"],
+                            plane_dtype=self.plane_dtype,
                         )
                         contact_ious, contact_auc = meshiou(
                             dist_h2o_gt, contact_infos["min_dists"]
@@ -312,9 +336,10 @@ class HandNet(nn.Module):
                     atlas_results, batch, cfg.atlas,
                     has_objpoints3d=spec.has_objpoints3d,
                     has_center3d=spec.has_center3d,
-                    obj_faces=self.ico_faces,
+                    obj_faces=self.loss_faces,
                     laplacian=self.laplacian,
                     regul_scale=regul_scale,
+                    geometry_dtype=cfg.geometry_dtype,
                 )
                 total_loss = (
                     atlas_total if total_loss is None else total_loss + atlas_total
@@ -323,6 +348,10 @@ class HandNet(nn.Module):
 
         losses["total_loss"] = total_loss
         return total_loss, results, losses
+
+
+def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def build_handnet(

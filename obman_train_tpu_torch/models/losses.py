@@ -7,6 +7,9 @@ package: models/losses.py).
 - Which losses run also depends on which GT queries the batch carries,
   given statically by :class:`~obman_train_tpu_torch.models.handnet.BatchSpec`
   flags.
+- bf16 predictions (a bf16 decoder) meet float32 targets in ``mse`` and the
+  Chamfer terms, which promote to float32 as ``jnp`` does; a bf16 head's
+  own regularizers (``mano_shape``, ``pose_reg``) stay bf16, as in JAX.
 """
 
 from __future__ import annotations
@@ -17,8 +20,13 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from obman_train_tpu_torch.config import AtlasConfig, ManoConfig
-from obman_train_tpu_torch.ops.chamfer import chamfer_loss
+from obman_train_tpu_torch.ops.chamfer import chamfer_loss, plane_dtype_for
 from obman_train_tpu_torch.ops.mesh import edge_loss, laplacian_loss
+
+# OBMAN_STACK_ATLAS=1 computes the centred and final Chamfer pair as one
+# stacked (2B, N, M) call (JAX :23-34); read once, at import, as the JAX
+# package reads it; set _STACK_ATLAS_PLANES to change it in a running process
+_STACK_ATLAS_PLANES = os.environ.get("OBMAN_STACK_ATLAS", "0") == "1"
 
 
 def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -69,17 +77,17 @@ def compute_atlas_loss(
     obj_faces: Optional[torch.Tensor],
     laplacian: Optional[torch.Tensor],
     regul_scale=1.0,
+    geometry_dtype: str = "float32",
 ) -> Tuple[torch.Tensor, Dict]:
     """AtlasLoss.compute_loss (reference: atlasbranch.py:199-287), with the
-    centered and final Chamfer terms as two ``chamfer_loss`` calls.
+    centered and final Chamfer terms as two ``chamfer_loss`` calls, or one
+    stacked call with ``_STACK_ATLAS_PLANES``.
 
     ``regul_scale`` multiplies the edge and Laplacian weights: the
     reference's per-epoch regul decay (decay_regul, handnet.py:188-196).
+    ``geometry_dtype`` picks the Chamfer selection plane (JAX :85-98).
     """
-    if os.environ.get("OBMAN_STACK_ATLAS", "0") == "1":
-        raise NotImplementedError(
-            "OBMAN_STACK_ATLAS=1 (one stacked Chamfer call for the centered "
-            "and final pair) is not ported yet: a later slice")
+    plane_dtype = plane_dtype_for(geometry_dtype)
     edge_regul_lambda = cfg.lambda_regul_edges
     lambda_laplacian = cfg.lambda_laplacian
 
@@ -105,10 +113,20 @@ def compute_atlas_loss(
                 torch.sqrt(torch.sum(centered**2, dim=2) + 1e-16), dim=1)
             scale_loss = mse(preds["objscale"], scales_gt[:, None])
             losses["atlas_scale3d"] = scale_loss
-        l1, l2 = chamfer_loss(preds["objpointscentered3d"], centered)
-        sym_loss = torch.mean(l1 + l2)
-        f1, f2 = chamfer_loss(preds["objpoints3d"], target)
-        sym_final = torch.mean(f1 + f2)
+        if _STACK_ATLAS_PLANES:
+            # one (2B, N, M) call; each example's terms are its own
+            B = target.shape[0]
+            l1, l2 = chamfer_loss(
+                torch.cat([preds["objpointscentered3d"], preds["objpoints3d"]]),
+                torch.cat([centered, target]), plane_dtype=plane_dtype)
+            sym_loss = torch.mean(l1[:B] + l2[:B])
+            sym_final = torch.mean(l1[B:] + l2[B:])
+        else:
+            l1, l2 = chamfer_loss(preds["objpointscentered3d"], centered,
+                                  plane_dtype=plane_dtype)
+            sym_loss = torch.mean(l1 + l2)
+            f1, f2 = chamfer_loss(preds["objpoints3d"], target, plane_dtype=plane_dtype)
+            sym_final = torch.mean(f1 + f2)
         obj_mesh = preds["objpointscentered3d"]
         losses["final_chamfer_loss"] = sym_final
         final = (
@@ -118,7 +136,8 @@ def compute_atlas_loss(
             + cfg.scale_weight * scale_loss
         )
     elif has_objpoints3d and cfg.lambda_atlas:
-        l1, l2 = chamfer_loss(preds["objpoints3d"], batch["objpoints3d"])
+        l1, l2 = chamfer_loss(preds["objpoints3d"], batch["objpoints3d"],
+                              plane_dtype=plane_dtype)
         sym_loss = torch.mean(l1 + l2)
         final = cfg.lambda_atlas * sym_loss
         obj_mesh = preds["objpoints3d"]

@@ -10,7 +10,15 @@ state_dict keys are the ones release checkpoints carry (``conv1``,
 (:class:`BatchNorm2d`). The JAX package's stem and
 max-pool custom backwards (ops/stemconv.py, ops/maxpool.py) change only the
 backward and are off by default, so the forward is the stock
-``nn.Conv2d`` / ``nn.MaxPool2d(3, 2, 1)``.
+convolution / ``nn.MaxPool2d(3, 2, 1)``.
+
+``compute_dtype`` (the config's ``compute_dtype``, JAX :40-201) is expressed
+as flax expresses ``nn.Conv``/``nn.Dense(dtype=...)``: the parameters stay
+float32 and every call casts its input, weight and bias to the compute
+dtype (``promote_dtype``, JAX :55). :class:`Conv2d`, :class:`Conv1d` and
+:class:`Linear` do that, and the BatchNorms normalize in float32 and cast
+their output. ``torch.autocast`` is not used: it picks per op from its own
+lists and would compute another function than the JAX package's.
 """
 
 from __future__ import annotations
@@ -18,7 +26,65 @@ from __future__ import annotations
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+# ModelConfig.compute_dtype -> the dtype the layers compute in; None computes
+# in the parameters' own dtype (float32, or float64 for a copy made with
+# ``.double()`` as a reference on the CPU), the float32 path as it was
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(name: str) -> Optional[torch.dtype]:
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {name!r} not in {sorted(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[name]
+
+
+def _cast_call(layer: nn.Module, op, x: torch.Tensor, bias_shape) -> torch.Tensor:
+    """``op(x, weight, bias)`` in the layer's compute dtype (flax
+    ``promote_dtype``): the float32 parameters are cast, not stored. In a
+    compute dtype the bias is added after the product, a rounding of its
+    own, as flax adds it (``y += bias``); a fused bias would round once."""
+    dt = layer.compute_dtype
+    if dt is None:
+        return op(x, layer.weight, layer.bias)
+    y = op(x.to(dt), layer.weight.to(dt), None)
+    return y if layer.bias is None else y + layer.bias.to(dt).view(bias_shape)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in ``compute_dtype`` (flax ``nn.Dense(dtype=)``)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, out_features, bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        return _cast_call(self, F.linear, x, (-1,))
+
+
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` computing in ``compute_dtype``."""
+
+    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        return _cast_call(self, self._conv_forward, x, (-1, 1))
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in ``compute_dtype`` (flax ``nn.Conv(dtype=)``)."""
+
+    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        return _cast_call(self, self._conv_forward, x, (-1, 1, 1))
 
 
 class _FlaxTrainBN:
@@ -34,11 +100,28 @@ class _FlaxTrainBN:
     ``F.batch_norm``: on the CPU, on the one-step inputs of
     ``tests/test_torch_train_bn.py`` (ResNet-18, 64 px, B=4), torch's fused
     float32 training backward was 7.5e-2 of a gradient's scale off a float64
-    reference, the written-out chain 1.3e-3 and JAX's 9.1e-4."""
+    reference, the written-out chain 1.3e-3 and JAX's 9.1e-4.
+
+    With a ``compute_dtype`` (flax ``BatchNorm(dtype=bf16)``) the
+    statistics and the normalization run in at least float32, as flax's
+    ``_compute_stats`` (``force_float32_reductions``) and ``_normalize``
+    promote them, and the output is cast to the compute dtype; the
+    parameters and running statistics stay float32. In ``eval()`` that is
+    torch's own BatchNorm on the low-precision input with float32
+    parameters (cuDNN on the GPU), which computes in float32 inside."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(num_features, eps=eps, momentum=momentum)
+        self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
         if not self.training:
-            return super().forward(x)
+            y = super().forward(x)
+            return y if dt is None else y.to(dt)
+        if dt is not None:
+            x = x.to(torch.promote_types(x.dtype, torch.float32))
         var, mean = torch.var_mean(x, dim=[0, *range(2, x.dim())], unbiased=False)
         shape = (1, -1) + (1,) * (x.dim() - 2)
         mul = torch.rsqrt(var + self.eps) * self.weight
@@ -48,7 +131,7 @@ class _FlaxTrainBN:
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(var, alpha=m)
             self.num_batches_tracked.add_(1)
-        return y
+        return y if dt is None else y.to(dt)
 
 
 class BatchNorm2d(_FlaxTrainBN, nn.BatchNorm2d):
@@ -59,25 +142,30 @@ class BatchNorm1d(_FlaxTrainBN, nn.BatchNorm1d):
     pass
 
 
-def _bn(c: int) -> BatchNorm2d:
+def _bn(c: int, dtype: Optional[torch.dtype] = None) -> BatchNorm2d:
     # flax BatchNorm(momentum=0.9, epsilon=1e-5) == torch momentum 0.1
-    return BatchNorm2d(c, eps=1e-5, momentum=0.1)
+    return BatchNorm2d(c, eps=1e-5, momentum=0.1, compute_dtype=dtype)
+
+
+def _conv(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0,
+          dtype: Optional[torch.dtype] = None) -> Conv2d:
+    return Conv2d(cin, cout, k, stride, padding, bias=False, compute_dtype=dtype)
 
 
 class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
-        self.bn1 = _bn(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = _bn(planes)
+        self.conv1 = _conv(inplanes, planes, 3, stride, 1, dtype)
+        self.bn1 = _bn(planes, dtype)
+        self.conv2 = _conv(planes, planes, 3, 1, 1, dtype)
+        self.bn2 = _bn(planes, dtype)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = (
-            nn.Sequential(nn.Conv2d(inplanes, planes, 1, stride, bias=False),
-                          _bn(planes))
+            nn.Sequential(_conv(inplanes, planes, 1, stride, dtype=dtype),
+                          _bn(planes, dtype))
             if downsample else None
         )
 
@@ -92,18 +180,18 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         out = planes * self.expansion
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = _bn(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
-        self.bn2 = _bn(planes)
-        self.conv3 = nn.Conv2d(planes, out, 1, bias=False)
-        self.bn3 = _bn(out)
+        self.conv1 = _conv(inplanes, planes, 1, dtype=dtype)
+        self.bn1 = _bn(planes, dtype)
+        self.conv2 = _conv(planes, planes, 3, stride, 1, dtype)
+        self.bn2 = _bn(planes, dtype)
+        self.conv3 = _conv(planes, out, 1, dtype=dtype)
+        self.bn3 = _bn(out, dtype)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = (
-            nn.Sequential(nn.Conv2d(inplanes, out, 1, stride, bias=False), _bn(out))
+            nn.Sequential(_conv(inplanes, out, 1, stride, dtype=dtype), _bn(out, dtype))
             if downsample else None
         )
 
@@ -117,12 +205,14 @@ class Bottleneck(nn.Module):
 
 class ResNet(nn.Module):
     """Returns pooled features (B, 512|2048) and, with ``return_inter``,
-    the output of each of the four stages (NCHW)."""
+    the output of each of the four stages (NCHW), in ``dtype`` (the
+    parameters' own with None)."""
 
-    def __init__(self, stage_sizes: Sequence[int], block_cls: type):
+    def __init__(self, stage_sizes: Sequence[int], block_cls: type,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
-        self.bn1 = _bn(64)
+        self.conv1 = _conv(3, 64, 7, 2, 3, dtype)
+        self.bn1 = _bn(64, dtype)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         inplanes = 64
@@ -134,7 +224,7 @@ class ResNet(nn.Module):
                 stride = 2 if (stage > 0 and block == 0) else 1
                 out = width * block_cls.expansion
                 needs_down = block == 0 and (stride != 1 or inplanes != out)
-                blocks.append(block_cls(inplanes, width, stride, needs_down))
+                blocks.append(block_cls(inplanes, width, stride, needs_down, dtype))
                 inplanes = out
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
 
@@ -150,9 +240,9 @@ class ResNet(nn.Module):
         return (feats, inters) if return_inter else (feats, None)
 
 
-def resnet18() -> ResNet:
-    return ResNet((2, 2, 2, 2), BasicBlock)
+def resnet18(dtype: Optional[torch.dtype] = None) -> ResNet:
+    return ResNet((2, 2, 2, 2), BasicBlock, dtype)
 
 
-def resnet50() -> ResNet:
-    return ResNet((3, 4, 6, 3), Bottleneck)
+def resnet50(dtype: Optional[torch.dtype] = None) -> ResNet:
+    return ResNet((3, 4, 6, 3), Bottleneck, dtype)

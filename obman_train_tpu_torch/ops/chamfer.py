@@ -24,16 +24,54 @@ one MXU product; on the H100 the plane at the training shapes is
 again in the backward, while the kernel reads ~10 KB per example. On the
 CPU ``"auto"`` keeps the plane, as the JAX package does off the TPU, so
 the CPU port matches JAX's default path.
+
+Off the kernel route two more forms exist, in the JAX package's dispatch
+order (:80-93): the kernel first, whatever ``plane_dtype`` is; then the
+``geometry_dtype`` rung's selection plane (``plane_dtype``, from
+:func:`plane_dtype_for`): neighbours chosen on a plane of that dtype
+under ``no_grad``, the values recomputed from the chosen pairs, so the
+backward never touches the plane; then, with ``OBMAN_SCATTER_BWD=1``, the
+plane's forward with the kernel route's scatter-form backward; then the
+plain plane under autograd. ``OBMAN_SCATTER_BWD`` is read once, when this
+module is imported, as the JAX package reads it (:31); set
+``_SCATTER_BWD`` to change it in a running process.
+
+Inputs of mixed dtypes (bf16 object points against float32 targets) are
+promoted where ``jnp`` promotes them: in the plane's product and in the
+differences.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import torch
 
 from obman_train_tpu_torch.device import full_fp32
 from obman_train_tpu_torch.ops.nnsqdist import nn_dir, nn_min_sqdist
+
+# the plane route's backward form (JAX :21-31): plane autograd by default,
+# the scatter form with OBMAN_SCATTER_BWD=1; read at import, as in JAX
+_SCATTER_BWD = os.environ.get("OBMAN_SCATTER_BWD", "0") == "1"
+
+# --geometry_dtype -> the selection plane's dtype (None: the parity path)
+PLANE_DTYPES = {"float32": None, "float32_select": torch.float32,
+                "bfloat16": torch.bfloat16}
+
+
+def plane_dtype_for(geometry_dtype: str) -> Optional[torch.dtype]:
+    """The JAX ``plane_dtype_for`` (:143-168): ``float32`` is the parity
+    path (the reference's rx + ry - 2xy values, autograd through the
+    plane); ``float32_select`` the same full-float32 plane for selection
+    only, values recomputed exactly from the selected pairs;
+    ``bfloat16`` a one-pass bf16 selection plane with the same exact
+    recompute (near-ties below bf16 resolution may pick another
+    neighbour)."""
+    if geometry_dtype not in PLANE_DTYPES:
+        raise ValueError(
+            f"geometry_dtype {geometry_dtype!r} not in {sorted(PLANE_DTYPES)}")
+    return PLANE_DTYPES[geometry_dtype]
 
 
 def batch_pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -41,11 +79,14 @@ def batch_pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
     Computed as rx + ry - 2 x.y^T like the reference, so values can be
     slightly negative from cancellation; the reference does not clamp.
+    Each squared norm is taken in its input's dtype and the product in
+    the promoted one, as ``jnp.einsum`` promotes.
     """
     xx = torch.sum(x * x, dim=-1)
     yy = torch.sum(y * y, dim=-1)
+    dt = torch.promote_types(x.dtype, y.dtype)
     with full_fp32(x.device):
-        xy = torch.bmm(x, y.transpose(1, 2))
+        xy = torch.bmm(x.to(dt), y.to(dt).transpose(1, 2))
     return xx[:, :, None] + yy[:, None, :] - 2.0 * xy
 
 
@@ -59,15 +100,38 @@ def _use_kernel(x: torch.Tensor, y: torch.Tensor, use_kernel) -> bool:
     return x.device.type == "cuda" and y.device.type == "cuda"
 
 
-def _unported(plane_dtype) -> None:
-    if plane_dtype is not None:
-        raise NotImplementedError(
-            "plane_dtype (the geometry_dtype selection plane) is not ported "
-            "yet: a later slice")
-    if os.environ.get("OBMAN_SCATTER_BWD", "0") == "1":
-        raise NotImplementedError(
-            "OBMAN_SCATTER_BWD=1 (the plane route's scatter backward) is not "
-            "ported yet: a later slice")
+def _plane_argmin(x: torch.Tensor, y: torch.Tensor):
+    """``(min_x2y, argmin_x2y, min_y2x, argmin_y2x)`` of the plane;
+    ``torch.argmin`` returns the first occurrence as ``jnp.argmin`` does
+    (``torch.min`` over a dim does not promise which index wins a tie)."""
+    d = batch_pairwise_sqdist(x, y)
+    return (torch.amin(d, dim=2), torch.argmin(d, dim=2),
+            torch.amin(d, dim=1), torch.argmin(d, dim=1))
+
+
+def _argmin_recompute_min_sqdist(x: torch.Tensor, y: torch.Tensor,
+                                 plane_dtype: torch.dtype):
+    """The JAX ``_argmin_recompute_min_sqdist`` (:97-140): neighbours
+    selected on a ``plane_dtype`` plane of the detached inputs, under
+    ``no_grad`` (the plane is dead in the backward), and the min values
+    recomputed as ``|x_i - y_j*|^2`` from the selected pairs, so they are
+    exact and >= 0 and their gradient is the min subgradient through the
+    selected pair (gather, then its scatter-add in the backward). A
+    float32 plane runs at full float32 as the parity path's; a bf16 one
+    is the same expression in bf16 throughout, a plain bf16 ``torch.bmm``
+    for the product (JAX computes it in XLA, not in Pallas), which selects
+    what the JAX package's plane selects on the CPU."""
+    with torch.no_grad():
+        d = batch_pairwise_sqdist(x.detach().to(plane_dtype), y.detach().to(plane_dtype))
+        argx = torch.argmin(d, dim=2)  # (B, N)
+        argy = torch.argmin(d, dim=1)  # (B, M)
+    B, N, _ = x.shape
+    M = y.shape[1]
+    y_sel = torch.gather(y, 1, argx[..., None].expand(B, N, 3))
+    minx = torch.sum(torch.square(x - y_sel), dim=-1)
+    x_sel = torch.gather(x, 1, argy[..., None].expand(B, M, 3))
+    miny = torch.sum(torch.square(y - x_sel), dim=-1)
+    return minx, argx, miny, argy
 
 
 def _min_sqdists_bwd(x, y, argx, argy, g_minx, g_miny):
@@ -101,22 +165,38 @@ def _min_sqdists_bwd(x, y, argx, argy, g_minx, g_miny):
     return gx.to(x.dtype), gy.to(y.dtype)
 
 
+def _save(ctx, x, y, out):
+    ctx.save_for_backward(x, y, out[1], out[3])
+    ctx.mark_non_differentiable(out[1], out[3])
+    return out
+
+
 class _KernelMinSqdistsArgmin(torch.autograd.Function):
     """``(min_x2y, argmin_x2y, min_y2x, argmin_y2x)`` on the kernel, under
     autograd: the forward records the argmins (K3's role) for the
-    O(BN + BM) backward; the integer argmins are not differentiable."""
+    O(BN + BM) backward; the integer argmins are not differentiable. The
+    kernel takes float32, as the Pallas wrapper promotes its inputs
+    (chamfer_kernel.py:220); the backward returns each input's dtype."""
 
     @staticmethod
     def forward(ctx, x, y):
-        minx, argx, miny, argy = nn_min_sqdist(x.float(), y.float(), with_argmin=True)
-        ctx.save_for_backward(x, y, argx, argy)
-        ctx.mark_non_differentiable(argx, argy)
-        return minx, argx, miny, argy
+        return _save(ctx, x, y, nn_min_sqdist(x.float(), y.float(), with_argmin=True))
 
     @staticmethod
     def backward(ctx, g_minx, _g_argx, g_miny, _g_argy):
         x, y, argx, argy = ctx.saved_tensors
         return _min_sqdists_bwd(x, y, argx, argy, g_minx, g_miny)
+
+
+class _PlaneMinScatterArgmin(_KernelMinSqdistsArgmin):
+    """The JAX ``_plane_min_scatter_argmin`` (:305-335), the
+    ``OBMAN_SCATTER_BWD=1`` form: the plane's forward, values and argmins
+    bit for bit, and the kernel route's backward, which routes each min's
+    cotangent through its argmin pair without touching the plane again."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        return _save(ctx, x, y, _plane_argmin(x, y))
 
 
 def _needs_grad(*ts: torch.Tensor) -> bool:
@@ -142,22 +222,16 @@ def _kernel_min_sqdists_argmin(x, y):
 
 def chamfer_min_sqdist(x: torch.Tensor, y: torch.Tensor, use_kernel="auto",
                        plane_dtype=None):
-    """``(min_x2y (B,N), argmin_x2y (B,N), min_y2x (B,M), argmin_y2x (B,M))``.
-
-    On the plane route the argmins come from ``torch.argmin``, which
-    returns the first occurrence as ``jnp.argmin`` does (``torch.min`` over
-    a dim does not promise which index wins a tie).
-    """
+    """``(min_x2y (B,N), argmin_x2y (B,N), min_y2x (B,M), argmin_y2x (B,M))``,
+    by the JAX dispatch order (:80-93): the kernel, the ``plane_dtype``
+    selection plane, the plane."""
     if _use_kernel(x, y, use_kernel):
         return _kernel_min_sqdists_argmin(x, y)
-    _unported(plane_dtype)
-    d = batch_pairwise_sqdist(x, y)
-    return (
-        torch.amin(d, dim=2),
-        torch.argmin(d, dim=2),
-        torch.amin(d, dim=1),
-        torch.argmin(d, dim=1),
-    )
+    if plane_dtype is not None:
+        return _argmin_recompute_min_sqdist(x, y, plane_dtype)
+    if _SCATTER_BWD and _needs_grad(x, y):
+        return _PlaneMinScatterArgmin.apply(x, y)
+    return _plane_argmin(x, y)
 
 
 def min_sqdist_to(x: torch.Tensor, y: torch.Tensor, use_kernel="auto",
@@ -169,7 +243,8 @@ def min_sqdist_to(x: torch.Tensor, y: torch.Tensor, use_kernel="auto",
     x, y = x.detach(), y.detach()
     if _use_kernel(x, y, use_kernel):
         return nn_dir(x.float(), y.float())[0]
-    _unported(plane_dtype)
+    if plane_dtype is not None:
+        return _argmin_recompute_min_sqdist(x, y, plane_dtype)[0]
     return torch.amin(batch_pairwise_sqdist(x, y), dim=2)
 
 
@@ -179,15 +254,20 @@ def chamfer_loss(preds: torch.Tensor, gts: torch.Tensor, use_kernel="auto",
 
     Returns ``(loss_1, loss_2)``, both (B,): the per-example means of the
     per-pred min squared distance to ``gts`` and of the per-gt min
-    squared distance to ``preds``.
+    squared distance to ``preds``. ``plane_dtype`` is the rung's selection
+    plane, ignored on the kernel route (JAX :386-409).
     """
     if _use_kernel(gts, preds, use_kernel):
         min_gt2pred, min_pred2gt = _kernel_min_sqdists(gts, preds)
-        return torch.mean(min_pred2gt, dim=1), torch.mean(min_gt2pred, dim=1)
-    _unported(plane_dtype)
-    d = batch_pairwise_sqdist(gts, preds)
-    min_gt2pred = torch.amin(d, dim=2)
-    min_pred2gt = torch.amin(d, dim=1)
+    elif plane_dtype is not None:
+        min_gt2pred, _, min_pred2gt, _ = _argmin_recompute_min_sqdist(
+            gts, preds, plane_dtype)
+    elif _SCATTER_BWD and _needs_grad(gts, preds):
+        min_gt2pred, _, min_pred2gt, _ = _PlaneMinScatterArgmin.apply(gts, preds)
+    else:
+        d = batch_pairwise_sqdist(gts, preds)
+        min_gt2pred = torch.amin(d, dim=2)
+        min_pred2gt = torch.amin(d, dim=1)
     return torch.mean(min_pred2gt, dim=1), torch.mean(min_gt2pred, dim=1)
 
 

@@ -1,7 +1,8 @@
 """Hand-object contact (attraction) and collision (repulsion) terms, forward
 (JAX package: ops/contact.py:71-234; reference contactloss.py:149-308).
 
-- nearest object point per hand vert from the dense float32 plane;
+- nearest object point per hand vert from the dense float32 plane, or the
+  ``geometry_dtype`` rung's selection plane (JAX :141-161);
 - inside/outside from the ray-parity test on detached inputs (the reference
   detaches both, contactloss.py:170-172), through the CUDA kernel on the GPU;
 - attraction on exterior hand verts near the object, repulsion on
@@ -22,7 +23,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from obman_train_tpu_torch.assets.contact_zones import tips_mask, zone_masks
-from obman_train_tpu_torch.ops.chamfer import chamfer_min_sqdist
+from obman_train_tpu_torch.ops.chamfer import chamfer_min_sqdist, plane_dtype_for
 from obman_train_tpu_torch.ops.raytri import mesh_contains_points
 
 ContainsFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -83,6 +84,7 @@ def compute_contact_loss(
     contact_target: str = "all",
     contact_sym: bool = False,
     contact_zones: str = "all",
+    geometry_dtype: str = "float32",
     contains: Optional[ContainsFn] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict, Dict]:
     """Attraction + repulsion terms between a hand and an object mesh.
@@ -91,6 +93,12 @@ def compute_contact_loss(
       hand_verts: (B, 778, 3) in mm.
       obj_verts:  (B, V_o, 3) in mm.
       obj_faces:  (F_o, 3) integer faces, on the verts' device.
+      geometry_dtype: the nearest neighbours' selection plane
+        (:func:`~obman_train_tpu_torch.ops.chamfer.plane_dtype_for`).
+        Object vertices may be bf16 (a bf16 decoder): the differences to
+        the float32 hand promote to float32, and the inside test takes
+        float32 triangles whose edges are differenced in the input's
+        dtype, as the JAX package computes them.
       contains: the exterior test, default the kernel path
         :func:`~obman_train_tpu_torch.ops.raytri.mesh_contains_points`; a
         test hook, not a fallback.
@@ -100,7 +108,8 @@ def compute_contact_loss(
     """
     if contact_zones not in ("all", "tips", "zones"):
         raise ValueError(f"contact_zones {contact_zones} not in [tips|zones|all]")
-    mins21, min21idxs, mins12, _ = chamfer_min_sqdist(hand_verts, obj_verts)
+    mins21, min21idxs, mins12, _ = chamfer_min_sqdist(
+        hand_verts, obj_verts, plane_dtype=plane_dtype_for(geometry_dtype))
 
     obj_triangles = obj_verts[:, obj_faces.long()]  # (B, F, 3, 3)
     exterior = (contains or mesh_contains_points)(

@@ -37,12 +37,14 @@ def triangle_table(triangles: torch.Tensor) -> torch.Tensor:
 
     Rows: (v0, invdet), (e1, ok), (e2, 0), (pvec, 0), with pvec = d x e2,
     det = e1 . pvec, ok = |det| >= TOL and invdet = 1 / (det + 0.1 TOL).
+    The edges are differenced in the triangles' own dtype and then cast,
+    as the Pallas wrapper (raytri_kernel.py:87-89) and the JAX inside test
+    compute them for bf16 object vertices.
     """
-    tri = triangles.to(torch.float32)
-    d0, d1, d2 = _direction(tri.device)
-    v0 = tri[:, :, 0]
-    e1 = tri[:, :, 1] - tri[:, :, 0]
-    e2 = tri[:, :, 2] - tri[:, :, 0]
+    d0, d1, d2 = _direction(triangles.device)
+    v0 = triangles[:, :, 0].to(torch.float32)
+    e1 = (triangles[:, :, 1] - triangles[:, :, 0]).to(torch.float32)
+    e2 = (triangles[:, :, 2] - triangles[:, :, 0]).to(torch.float32)
     e2x, e2y, e2z = e2.unbind(-1)
     # jnp.cross(d, e2), component by component in its order
     pvx = d1 * e2z - d2 * e2y

@@ -8,6 +8,7 @@ from obman_train_tpu_torch.train.steps import (
     make_eval_step,
     make_optimizer,
     make_train_step,
+    points_generator,
 )
 
 __all__ = [
@@ -21,4 +22,5 @@ __all__ = [
     "make_eval_step",
     "make_optimizer",
     "make_train_step",
+    "points_generator",
 ]

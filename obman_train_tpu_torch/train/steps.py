@@ -11,11 +11,18 @@
   gradients on. ``train_bn=True`` (JAX :140-290, ``mutable=["batch_stats"]``)
   runs the step in ``train()``: BN on batch statistics, updating the
   running ones, and dropout drawn from a generator seeded by the run's seed,
-  the update count and the microbatch. Gradient accumulation over strided
+  the update count and the microbatch; with ``atlas.mesh=False`` the random
+  cloud's sphere points come from another generator of the same three (the
+  JAX step splits its key into dropout and points, :193-235). Gradient
+  accumulation over strided
   microbatches averages losses and gradients as the JAX ``lax.scan`` does;
   in ``train()`` its microbatch forwards update the running statistics in
   sequence, as the scan carries them.
 - ``make_eval_step``: losses and predictions without gradients.
+- ``compute_dtype="bfloat16"``: the forward computes in bf16 on the float32
+  parameters, so gradients, the optimizer's moments and the updates stay
+  float32 and the optimizers are unchanged; no loss scaling (JAX uses
+  none).
 
 The port's state is PyTorch's own: the parameters live in the module and
 the moments in the optimizer, both updated in place, so a
@@ -26,7 +33,7 @@ schedule, the update count and the regul decay factor.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -137,8 +144,18 @@ def dropout_generator(device: torch.device, seed: int, step: int,
     ``micro``: a pure function of the three, as the JAX step folds the
     update count into its key (:193), so a resumed run draws the masks of
     the run that never stopped."""
-    state = np.random.SeedSequence([int(seed), int(step), int(micro)]).generate_state(
-        1, np.uint64)[0]
+    return _generator(device, [int(seed), int(step), int(micro)])
+
+
+def points_generator(device: torch.device, seed: int, step: int,
+                     micro: int = 0) -> torch.Generator:
+    """The random-cloud decoder's generator of update ``step``, microbatch
+    ``micro`` (``atlas.mesh=False``), a stream apart from the dropout's."""
+    return _generator(device, [int(seed), int(step), int(micro), 1])
+
+
+def _generator(device: torch.device, entropy) -> torch.Generator:
+    state = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(state))
 
 
@@ -193,10 +210,11 @@ def make_train_step(
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     dev = _net_device(net, device)
     use_dropout = train_bn and bool(net.cfg.fc_dropout)
+    random_cloud = not net.cfg.atlas.mesh
 
-    def forward_backward(batch, regul_scale, gen: Optional[torch.Generator]):
+    def forward_backward(batch, regul_scale, gens):
         total, results, losses = net(batch, spec, regul_scale=regul_scale,
-                                     dropout_gen=gen)
+                                     dropout_gen=gens[0], points_gen=gens[1])
         total.backward()
         joints = results["joints"].detach() if return_joints else None
         return {k: v.detach() for k, v in losses.items()}, joints
@@ -212,7 +230,10 @@ def make_train_step(
             net.eval()
 
     def gen_for(state, micro):
-        return dropout_generator(dev, state.seed, state.step, micro) if use_dropout else None
+        return (
+            dropout_generator(dev, state.seed, state.step, micro) if use_dropout else None,
+            points_generator(dev, state.seed, state.step, micro) if random_cloud else None,
+        )
 
     def update(state: TrainState, batch: Dict):
         batch = _to_device(batch, dev)

@@ -179,11 +179,18 @@ def test_use_kernel_rule_on_cpu_tensors(monkeypatch):
 
 
 def test_unported_options_raise(monkeypatch):
-    x = torch.zeros((1, 4, 3))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        chamfer.chamfer_loss(x, x, plane_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        chamfer.min_sqdist_to(x, x, plane_dtype=torch.bfloat16)
+    """The selection planes and the scatter backward run since they were
+    ported (parity: test_torch_geometry_dtype.py): a rung's values are the
+    exact distances of its selected pairs, and OBMAN_SCATTER_BWD is read at
+    import (the module constant), not at the call."""
+    x, y = (torch.from_numpy(a) for a in _clouds(9, B=1, N=40, M=30))
+    for dt in (torch.float32, torch.bfloat16):
+        minx, argx, miny, argy = chamfer.chamfer_min_sqdist(x, y, plane_dtype=dt)
+        torch.testing.assert_close(minx, ((x - y[:, argx[0]]) ** 2).sum(-1))
+        torch.testing.assert_close(miny, ((y - x[:, argy[0]]) ** 2).sum(-1))
+        l1, l2 = chamfer.chamfer_loss(x, y, plane_dtype=dt)
+        torch.testing.assert_close(l1, minx.mean(1))
+        torch.testing.assert_close(l2, miny.mean(1))
+        assert torch.equal(chamfer.min_sqdist_to(x, y, plane_dtype=dt), minx)
     monkeypatch.setenv("OBMAN_SCATTER_BWD", "1")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        chamfer.chamfer_min_sqdist(x, x)
+    assert chamfer._SCATTER_BWD is False

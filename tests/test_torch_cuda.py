@@ -413,3 +413,96 @@ def test_export_round_trip_on_cuda(cuda, tmp_path):
     assert served.device.type == "cuda"
     np.testing.assert_allclose(served.predict_dual(frame)["verts"],
                                model.predict_dual(frame)["verts"], rtol=1e-5, atol=2e-3)
+
+
+# --- the precision rungs (bf16 compute_dtype, geometry_dtype planes) ---
+
+CONTACT_BF16 = ModelConfig(atlas=CONTACT.atlas, contact=CONTACT.contact,
+                           compute_dtype="bfloat16")
+
+
+def _rel(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return float((a - b).norm() / b.norm())
+
+
+def _seeded(cfg, device):
+    net = build_handnet(cfg, synthetic_mano_assets("right"), synthetic_mano_assets("left"),
+                        device="cpu")
+    return init_weights(net, seed=0).to(device)
+
+
+def test_bf16_forward_on_cuda_is_as_close_to_float32_as_the_cpu_port(cuda):
+    """The bf16 contact forward on the card: JAX's output dtypes, K1 once
+    and two argmin sweeps; its distance from the float32 forward (relative
+    L2) no more than 3x the CPU port's bf16 distance on the same input (two
+    bf16 programs round differently; tests/test_torch_bf16.py holds the CPU
+    port to JAX's)."""
+    gen = torch.Generator().manual_seed(0)
+    frames = torch.randint(0, 256, (4, 64, 64, 3), generator=gen, dtype=torch.uint8)
+    sides = torch.tensor([0, 1, 0, 1], dtype=torch.int32)
+    LAUNCHES.clear()
+    gpu = make_infer(_seeded(CONTACT_BF16, cuda))(frames, sides)
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {raytri.KERNEL: 1, nnsqdist.KERNEL_ARGMIN: 2}
+    assert gpu["verts"].dtype == torch.float32 and gpu["objpoints3d"].dtype == torch.bfloat16
+    cpu16 = make_infer(_seeded(CONTACT_BF16, "cpu"))(frames, sides)
+    cpu32 = make_infer(_seeded(CONTACT, "cpu"))(frames, sides)
+    for key in ("verts", "joints", "objpoints3d"):
+        assert _rel(gpu[key].cpu(), cpu32[key]) <= 3 * _rel(cpu16[key], cpu32[key]), key
+
+
+def test_bf16_train_step_on_cuda(cuda):
+    """One bf16 step on the card, frozen and unfrozen BN: the launches of
+    the float32 step, float32 gradients whose distance from the CPU port's
+    float32 ones is no more than 3x the CPU port's bf16 distance, and
+    float32 running statistics that move in train mode."""
+    batch = _gt_batch(2, 64, 0)
+
+    def grads(cfg, device, train_bn=False):
+        net = _seeded(cfg, device)
+        opt = train.make_optimizer(TrainConfig(optimizer="sgd", lr=0.0, momentum=0.0), net)
+        state = train.create_train_state(net, opt, TrainConfig())
+        step = train.make_train_step(net, opt, BatchSpec(), train_bn=train_bn, device=device)
+        LAUNCHES.clear()
+        _, losses = step(state, batch)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        g = {n: p.grad.cpu() for n, p in net.named_parameters()}
+        return net, losses, torch.cat([g[n].flatten() for n in sorted(g)]), dict(LAUNCHES)
+
+    _, _, g32, _ = grads(CONTACT, "cpu")
+    _, _, g16, _ = grads(CONTACT_BF16, "cpu")
+    net, losses, gg, launches = grads(CONTACT_BF16, cuda)
+    assert launches == {raytri.KERNEL: 1, nnsqdist.KERNEL_ARGMIN: 6, nnsqdist.KERNEL_MIN: 1}
+    assert gg.dtype == torch.float32 and torch.isfinite(losses["total_loss"])
+    assert _rel(gg, g32) <= 3 * _rel(g16, g32)
+    before = net.base_net.bn1.running_var.clone()
+    net, losses, gu, _ = grads(CONTACT_BF16, cuda, train_bn=True)
+    assert torch.isfinite(gu).all() and torch.isfinite(losses["total_loss"])
+    stats = net.base_net.bn1.running_var
+    assert stats.dtype == torch.float32 and not torch.equal(stats, before.to(stats.device))
+
+
+@pytest.mark.parametrize("N,M", [(778, 642), (600, 642)])
+def test_rung_planes_on_cuda(cuda, N, M):
+    """The rungs' planes on the card (``use_kernel=False``): the float32
+    selection plane picks the kernel's neighbours except at near-ties
+    (within 2^-20 of the plane's magnitude), the bf16 plane the CPU
+    port's except within the bf16 resolution bound (2^-8, JAX's); values
+    are the exact distances of the pairs picked."""
+    x, y = (t.to(cuda) for t in _clouds(N + M, 8, N, M))
+    mag = float((x.double() ** 2).sum(-1).max() + (y.double() ** 2).sum(-1).max())
+    kern = chamfer.chamfer_min_sqdist(x, y, use_kernel=True)
+    for dt, bound in ((torch.float32, 2.0 ** -20), (torch.bfloat16, 2.0 ** -8)):
+        sel = chamfer.chamfer_min_sqdist(x, y, use_kernel=False, plane_dtype=dt)
+        ref = kern if dt == torch.float32 else [
+            t.to(cuda) for t in chamfer.chamfer_min_sqdist(x.cpu(), y.cpu(), use_kernel=False,
+                                                           plane_dtype=dt)]
+        for i, (q, s) in ((1, (x, y)), (3, (y, x))):
+            exact = lambda a: ((q.double() - torch.gather(  # noqa: E731
+                s.double(), 1, a[..., None].expand(-1, -1, 3))) ** 2).sum(-1)
+            differ = sel[i] != ref[i]
+            gap = (exact(sel[i]) - exact(ref[i])).abs()[differ]
+            assert gap.numel() == 0 or float(gap.max()) <= bound * mag, (dt, int(differ.sum()))
+            torch.testing.assert_close(sel[i - 1].double(), exact(sel[i]), rtol=1e-5, atol=1e-3)

@@ -247,10 +247,21 @@ def test_loss_path_and_training_mode_raise():
 
 
 def test_unported_dtypes_raise():
-    with pytest.raises(NotImplementedError):
-        build_handnet(tcfg.ModelConfig(compute_dtype="bfloat16"),
-                      synthetic_mano_assets("right"), synthetic_mano_assets("left"),
-                      device="cpu")
+    """bf16, the geometry rungs and the random cloud build since they were
+    ported (parity: test_torch_bf16.py, test_torch_geometry_dtype.py,
+    test_torch_random_cloud.py); names neither package knows raise."""
+    net = build_handnet(
+        tcfg.ModelConfig(compute_dtype="bfloat16", geometry_dtype="bfloat16",
+                         atlas=tcfg.AtlasConfig(mesh=False)),
+        synthetic_mano_assets("right"), synthetic_mano_assets("left"), device="cpu")
+    layers = [m for m in net.modules() if hasattr(m, "compute_dtype")]
+    assert len(layers) > 40 and {m.compute_dtype for m in layers} == {torch.bfloat16}
+    assert net.plane_dtype == torch.bfloat16 and net.atlas_branch.points_nb == 600
+    assert {p.dtype for p in net.parameters()} == {torch.float32}
+    for bad in (dict(compute_dtype="float16"), dict(geometry_dtype="float16")):
+        with pytest.raises(ValueError):
+            build_handnet(tcfg.ModelConfig(**bad), synthetic_mano_assets("right"),
+                          synthetic_mano_assets("left"), device="cpu")
 
 
 def test_entry_points_default_to_cuda():

@@ -225,11 +225,23 @@ def test_compute_atlas_loss_matches_goldens(g):
 
 
 def test_stacked_atlas_option_raises(monkeypatch):
+    """OBMAN_STACK_ATLAS runs since it was ported (parity:
+    test_torch_geometry_dtype.py): the stacked pair equals the two calls
+    bit for bit; the variable is read at import (the module constant)."""
+    rng = np.random.default_rng(3)
+    preds = {"objpoints3d": _t(rng.normal(0, 40, (2, 50, 3)).astype(np.float32)),
+             "objpointscentered3d": _t(rng.normal(0, 40, (2, 50, 3)).astype(np.float32)),
+             "objtrans": _t(rng.normal(0, 5, (2, 3)).astype(np.float32))}
+    batch = {"objpoints3d": _t(rng.normal(0, 40, (2, 45, 3)).astype(np.float32))}
     monkeypatch.setenv("OBMAN_STACK_ATLAS", "1")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        losses.compute_atlas_loss({"objpoints3d": torch.zeros(1, 4, 3)},
-                                  {"objpoints3d": torch.zeros(1, 4, 3)},
-                                  tcfg.AtlasConfig(), True, False, None, None)
+    assert losses._STACK_ATLAS_PLANES is False
+    out = {}
+    for stacked in (True, False):
+        monkeypatch.setattr(losses, "_STACK_ATLAS_PLANES", stacked)
+        out[stacked] = losses.compute_atlas_loss(preds, batch, tcfg.AtlasConfig(), True, False,
+                                                 None, None)
+    assert torch.equal(out[True][0], out[False][0])
+    assert all(torch.equal(out[True][1][k], v) for k, v in out[False][1].items())
 
 
 def gt_batch(B, S, seed, uint8=False):

@@ -4,7 +4,8 @@
 - every JAX flag exists with the same dest and default, and
   ``args_to_config`` gives the JAX package's config, JSON for JSON;
 - the flags of later slices raise, and without ``OBMAN_PLATFORM=cpu`` the
-  CLI wants a GPU; ``--mano_assets <dir>`` reads real MANO pkl files;
+  CLI wants a GPU; the precision rungs (``--compute_dtype bfloat16``, each
+  ``--geometry_dtype``) and ``--no_atlas_mesh`` train one epoch; ``--mano_assets <dir>`` reads real MANO pkl files;
 - ``--loader_processes`` trains the run the threaded loader trains, bit
   for bit; ``--no_freeze_batchnorm`` with ``--fc_dropout`` trains (the
   running statistics move) and its dropout masks follow ``--manual_seed``;
@@ -73,17 +74,50 @@ def test_args_to_config_matches_jax(argv):
     assert json.loads(pcfg.to_json()) == json.loads(jcfg.to_json())
 
 
-@pytest.mark.parametrize("extra,slice_name", [
-    (["--distributed"], "DDP"),
-    (["--compute_dtype", "bfloat16"], "bf16"),
-    (["--geometry_dtype", "float32_select"], "geometry_dtype"),
-    (["--no_atlas_mesh"], "random-cloud"),
-    (["--evaluate", "--save_results"], "host-tooling"),
+# the ids are those of the cases when all five raised; bf16, geometry_dtype
+# and the random cloud are ported now and train (``refused`` None)
+@pytest.mark.parametrize("extra,refused", [
+    pytest.param(["--distributed"], "DDP", id="extra0-DDP"),
+    pytest.param(["--compute_dtype", "bfloat16"], None, id="extra1-bf16"),
+    pytest.param(["--geometry_dtype", "float32_select"], None, id="extra2-geometry_dtype"),
+    pytest.param(["--no_atlas_mesh"], None, id="extra3-random-cloud"),
+    pytest.param(["--evaluate", "--save_results"], "host-tooling", id="extra4-host-tooling"),
 ])
-def test_flags_of_later_slices_raise(cpu, tmp_path, extra, slice_name):
-    with pytest.raises(NotImplementedError, match=slice_name):
-        pcli.main(BASE + ["--exp_id", str(tmp_path / "x")] + extra)
-    assert not os.path.exists(tmp_path / "x")  # raised before any side effect
+def test_flags_of_later_slices_raise(cpu, tmp_path, extra, refused):
+    if refused is not None:
+        with pytest.raises(NotImplementedError, match=refused):
+            pcli.main(BASE + ["--exp_id", str(tmp_path / "x")] + extra)
+        assert not os.path.exists(tmp_path / "x")  # raised before any side effect
+        return
+    _trains(tmp_path / "x", extra)
+
+
+def _trains(exp, extra):
+    """One epoch with ``extra``: the flags reach the saved config, and the
+    logged train and val losses are finite."""
+    state, _ = pcli.main(BASE + ["--exp_id", str(exp), "--epochs", "1"] + extra)
+    want = json.loads(jcli.args_to_config(jcli.build_parser().parse_args(
+        BASE + ["--exp_id", str(exp), "--epochs", "1"] + extra)).to_json())
+    with open(os.path.join(exp, "opt.json")) as f:
+        assert json.load(f)["model"] == want["model"]
+    for split in ("train", "val"):
+        rows = _logged(str(exp), split)
+        assert rows and all(np.isfinite(v) for _, r in rows for k, v in r.items()
+                            if k.endswith("loss")), split
+    assert state.step == 2
+    return state
+
+
+@pytest.mark.parametrize("extra", [
+    ["--compute_dtype", "bfloat16", "--geometry_dtype", "bfloat16", "--no_freeze_batchnorm"],
+    ["--compute_dtype", "bfloat16", "--no_atlas_mesh", "--atlas_predict_trans"],
+], ids=["bf16-bf16sel-unfrozen", "bf16-random-cloud"])
+def test_precision_rungs_train_with_the_contact_terms(cpu, tmp_path, extra):
+    contact = ([] if "--no_atlas_mesh" in extra else
+               ["--contact_lambda", "0.167", "--collision_lambda", "0.167"])
+    state = _trains(tmp_path / "x", contact + extra)
+    want = extra[extra.index("--compute_dtype") + 1] if "--compute_dtype" in extra else "float32"
+    assert state.net.cfg.compute_dtype == want
 
 
 @pytest.mark.parametrize("fix", [False, True])
