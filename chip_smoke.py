@@ -10,7 +10,8 @@ each fatal on failure:
    host's PIL, matplotlib and cv2 (the figures need matplotlib or PIL);
 2. build: every CUDA kernel of the port, from the sources in the repo (one
    nvcc per source, all started together), with ptxas registers and spills,
-   and beside them the input pipeline's host C++ warp (g++);
+   and beside them the host C++ (g++): the input pipeline's warp and the
+   grasp simulation's rigid-body stepper, which must build;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' full shapes and on ragged ones (tolerance: exact, values
    and argmins), with CUDA-event times of both (``ms``: eager calls, as
@@ -21,7 +22,10 @@ each fatal on failure:
    S of the search set, blocks) and the dense-plane route's time. Shapes that split the search set
    across blocks (one large cloud, a tiny query set against a large search
    set) carry a minimum whose first occurrence lies in a middle slice and
-   repeats in the later ones;
+   repeats in the later ones. K1 also at the voxel shapes of
+   ``intersect_vox`` (B=1, the whole grid in one launch): a 32^3 lattice
+   over a synthetic hand's box against its 1538 faces, and a 16^3 one over
+   an icosphere-3 object (1280 faces);
 4. backward: ``chamfer_loss`` forward and gradient on the kernel route
    against the same VJP on the plain nearest-neighbour version;
    large-cloud Chamfer path: ``chamfer_loss`` at 1x16384x16384 with its
@@ -88,12 +92,30 @@ each fatal on failure:
    selections counted, each within its near-tie bound; (d) one-epoch
    ``cli.traineval`` runs with ``--compute_dtype bfloat16`` (contact flags)
    and ``--no_atlas_mesh``, then the bf16 experiment reloaded in
-   ``DemoModel`` and exported, exported against live.
+   ``DemoModel`` and exported, exported against live;
+10. the grasp simulation and the evaluation tools, on phase 7's contact
+   experiment: (a) the voxel-shape K1 rows of phase 3; (b) ``cli.traineval
+   --resume --evaluate --save_results`` at ``--test_batch 256
+   --synthetic_size 256`` with the simulation on: the C++ stepper's backend
+   ``native``, 256 samples simulated, the depth pass (one K1 launch and one
+   min-only sweep for the saved batch) equal bit for bit to the plain
+   route, also on 256 seeded overlapping scenes, its time, and the stepper
+   pool's seconds and samples/s (host threads); (c) ``cli.simulate
+   --intersect`` on that directory: at most two K1 launches a sample for
+   the voxels, the first 8 samples' volumes and 8 seeded overlapping
+   scenes' equal to the plain route's; (d) ``process_sample`` artifacts of
+   2 samples (gif, trajectory, OBJ), with matplotlib where it is installed
+   and with PIL; (e) ``triage`` of the directory, Chamfer scores within
+   1e-6 relative of the plain route's; (f) ``inspect_feature_grads`` at 256
+   px, B=32, contact flags, and on a small input within 1e-3 of the CPU
+   port's; (g) ``cli.import_torch`` of a reference-style checkpoint
+   written from phase 7's net, whose ``DemoModel`` equals the source's bit
+   for bit.
 
 Output: progress lines, then one JSON line ``{"kernels": [...]}``, one
 JSON line ``{"traineval": {...}}``, one JSON line ``{"serving": {...}}``,
-one JSON line ``{"precision": {...}}``,
-the ``nvidia-smi`` line, and as the last line
+one JSON line ``{"precision": {...}}``, one JSON line
+``{"simulation": {...}}``, the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 With no GPU, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -228,17 +250,21 @@ def phase_device():
 def phase_build():
     from obman_train_tpu_torch.ops.kernels import build
 
-    from obman_train_tpu_torch.native import load_imageproc_lib
+    from obman_train_tpu_torch.native import load_imageproc_lib, load_physics_lib
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+    with ThreadPoolExecutor(len(KERNELS) + 2) as pool:
         host = pool.submit(load_imageproc_lib)
+        physics = pool.submit(load_physics_lib)
         list(pool.map(build.build, KERNELS))
         host.result()
+        if physics.result() is None:
+            fail("the rigid-body stepper native/physics.cpp did not build (g++)")
     for name in KERNELS:
         build.load(name)
-    log(f"build: {', '.join(k + '.cu' for k in KERNELS)} and the host warp "
-        f"native/imageproc.cpp in {time.perf_counter() - t0:.2f} s (in parallel)")
+    log(f"build: {', '.join(k + '.cu' for k in KERNELS)}, the host warp "
+        f"native/imageproc.cpp and the stepper native/physics.cpp in "
+        f"{time.perf_counter() - t0:.2f} s (in parallel)")
     for name in KERNELS:
         for line in build.BUILD_LOGS.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -298,24 +324,38 @@ def phase_kernels():
         if n:
             fail(f"raytri kernel disagrees on the ragged case B={b} P={p} T={t}")
 
-    kernel_ms = cuda_ms(lambda: raytri.raytri_count(pts, table), iters=50)
-    device_ms = graph_ms(lambda: raytri.raytri_count(pts, table), iters=50)
+    entry = _raytri_entry(raytri.KERNEL, pts, table, got, want, iters=50)
+    entry["path"] = "traineval"
+    return entry
+
+
+def _raytri_entry(name, pts, table, got, want, iters):
+    """The kernel-table row of one K1 shape: times of the kernel (eager and
+    from a CUDA graph) and of its plain version, the bound and its share."""
+    from obman_train_tpu_torch.ops import raytri
+
+    B, P, _ = pts.shape
+    T = table.shape[1]
+    kernel_ms = cuda_ms(lambda: raytri.raytri_count(pts, table), iters=iters)
+    device_ms = graph_ms(lambda: raytri.raytri_count(pts, table), iters=iters)
     plain_ms = cuda_ms(lambda: raytri.raytri_count_plain(pts, table), iters=3, warmup=1)
-    ops = B_FULL * P * T * RAYTRI_OPS_PER_TEST
+    ops = B * P * T * RAYTRI_OPS_PER_TEST
     nbytes = pts.numel() * 4 + table.numel() * 4 + got.numel() * 4
     ops_ms, bytes_ms = ops / PEAK_FP32_INSTS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     bound_ms = max(ops_ms, bytes_ms)
-    log(f"raytri times (warm L2, TF32 off): kernel {kernel_ms:.4f} ms (device "
+    log(f"raytri times at {B}x{P}x{T} (warm L2, TF32 off): kernel {kernel_ms:.4f} ms (device "
         f"{device_ms:.4f} ms), plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms "
         f"(ops {ops_ms:.4f} ms, bytes {bytes_ms:.4f} ms), {bound_ms / device_ms:.1%} of it")
     return {
-        "name": raytri.KERNEL,
+        "name": name,
+        "counter": raytri.KERNEL,
         "route": "cuda",
         "source": "obman_train_tpu_torch/ops/kernels/raytri.cu",
         "replaces": "obman_train_tpu/ops/pallas/raytri_kernel.py:29",
         "launches": None,  # filled from the main path's run
-        "max_abs_err": max_err,
-        "mismatches": mismatches,
+        "shape": [B, P, T],
+        "max_abs_err": int((got - want).abs().max()),
+        "mismatches": int((got != want).sum()),
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
         "device_ms": device_ms,
@@ -326,6 +366,55 @@ def phase_kernels():
         "share_of_bound": bound_ms / device_ms,
         "tf32": "off",
     }
+
+
+def _lattice(lo, hi, n):
+    """An n x n x n lattice of points spanning the box [lo, hi], (n**3, 3)."""
+    import numpy as np
+
+    axes = [np.linspace(lo[d], hi[d], n) for d in range(3)]
+    return np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1).reshape(-1, 3)
+
+
+def phase_voxel_kernels():
+    """K1 at the voxel shapes of ``intersect_vox``: the whole grid in one
+    launch (B=1). A 32^3 lattice (32768 points, metres) over the box of the
+    synthetic MANO hand at a seeded pose against its 1538 faces, and a 16^3
+    lattice over an icosphere-3 object (1280 faces) of 40 mm radius, each
+    box padded by 5 mm; exact against the plain version."""
+    import numpy as np
+    import torch
+
+    from obman_train_tpu_torch.assets import icosphere
+    from obman_train_tpu_torch.ops import raytri
+    from obman_train_tpu_torch.simulation.savemano import _hand_faces
+
+    set_tf32(False)
+    hand = _seeded_scenes(1, seed=11)[0][0].astype(np.float64) * 0.001
+    ico_v, ico_f = icosphere(3)
+    obj = ico_v * 0.04 + hand.mean(0)
+    rows = []
+    for name, verts, faces, n in (("raytri_count_voxel_hand", hand, _hand_faces(), 32),
+                                  ("raytri_count_voxel_object", obj, ico_f, 16)):
+        grid = _lattice(verts.min(0) - 0.005, verts.max(0) + 0.005, n)
+        pts = torch.from_numpy(grid.astype(np.float32)).cuda()[None]
+        v = torch.from_numpy(verts.astype(np.float32)).cuda()
+        tris = v[torch.from_numpy(np.asarray(faces, np.int64)).cuda()][None]
+        table = raytri.triangle_table(tris)
+        got = raytri.raytri_count(pts, table)
+        torch.cuda.synchronize()
+        want = raytri.raytri_count_plain(pts, table)
+        inside = int((got % 2 == 1).sum())
+        log(f"raytri voxel grid 1x{pts.shape[1]}x{tris.shape[1]} ({name}): "
+            f"{int((got != want).sum())} mismatches, {inside} voxels inside")
+        if not torch.equal(got, want):
+            fail(f"raytri kernel disagrees with the plain version on the voxel grid {name}")
+        if inside == 0:
+            fail(f"the voxel grid {name} holds no interior point")
+        entry = _raytri_entry(name, pts, table, got, want, iters=50)
+        entry["path"] = "simulate_intersect_run"
+        rows.append(entry)
+    return rows
 
 
 NN_SHAPES = (
@@ -1991,6 +2080,424 @@ def phase_precision(tmp):
     return result
 
 
+def _seeded_scenes(B, seed):
+    """Hands (B, 778, 3) of the synthetic MANO model at seeded PCA poses,
+    icosphere-3 objects (B, 642, 3) of 20-45 mm radius placed within 15 mm
+    of a random hand vertex, so that most overlap the hand, and the
+    objects' faces; mm, float32."""
+    import numpy as np
+    import torch
+
+    from obman_train_tpu_torch.assets import icosphere, synthetic_mano_assets
+    from obman_train_tpu_torch.models.mano import ManoLayer, mano_forward
+
+    rng = np.random.default_rng(seed)
+    pose = torch.from_numpy(rng.normal(0, 0.5, (B, 9)).astype(np.float32))
+    with torch.no_grad():
+        hands = mano_forward(ManoLayer(synthetic_mano_assets("right")), pose)[0].numpy()
+    verts, faces = icosphere(3)
+    centres = hands[np.arange(B), rng.integers(0, 778, B)] + rng.normal(0, 15, (B, 3))
+    objs = verts[None] * rng.uniform(20, 45, (B, 1, 1)) + centres[:, None]
+    return hands, objs.astype(np.float32), faces.astype(np.int32)
+
+
+# Phase 10, the grasp simulation and the evaluation tools (JAX
+# cli/traineval.py:560-566, simulation/, visualize/triage.py,
+# train/debug.py, cli/import_torch.py), on phase 7's contact experiment.
+SIM_B = 256          # one full-width saved batch: the depth pass at B=256
+SIM_VOLUMES_CHECKED = 8
+INSPECT_B, INSPECT_SMALL = 32, (2, 64)
+
+
+def _plain_depths(hands, objs, faces):
+    """Max penetration depths through the plain versions on the card: the
+    inside test's plain counts and the plain nearest-neighbour min."""
+    import numpy as np
+    import torch
+
+    from obman_train_tpu_torch.ops import nnsqdist, raytri
+
+    hv, ov = torch.from_numpy(np.asarray(hands, np.float32)).cuda(), \
+        torch.from_numpy(np.asarray(objs, np.float32)).cuda()
+    tri = ov[:, torch.from_numpy(np.asarray(faces, np.int64)).cuda()]
+    exterior = raytri.mesh_contains_points_plain(hv, tri).cpu().numpy()
+    min_sq = nnsqdist.nn_dir_plain(hv, ov)[0].cpu().numpy()
+    return (np.sqrt(np.maximum(min_sq, 0)) * ~exterior).max(axis=1)
+
+
+def _plain_volume(hv, hf, ov, of, pitch):
+    """``intersect_vox`` through the plain inside test on the card."""
+    import numpy as np
+    import torch
+
+    from obman_train_tpu_torch.ops import raytri
+    from obman_train_tpu_torch.simulation.intersect import voxel_grid
+
+    def occupancy(points, verts, faces):
+        v = torch.from_numpy(np.asarray(verts, np.float32)).cuda()
+        tri = v[torch.from_numpy(np.asarray(faces, np.int64)).cuda()][None]
+        pts = torch.from_numpy(np.asarray(points, np.float32)).cuda()[None]
+        return ~raytri.mesh_contains_points_plain(pts, tri)[0].cpu().numpy()
+
+    grid = voxel_grid(hv, ov, pitch)
+    if len(grid) == 0:
+        return 0.0
+    occ_h = occupancy(grid, hv, hf)
+    if not occ_h.any():
+        return 0.0
+    return float(occupancy(grid[occ_h], ov, of).sum()) * pitch**3
+
+
+def _sim_evaluate(exp, tmp):
+    """(b) ``cli.traineval --evaluate --save_results`` with the simulation
+    on, at B=256: the depth pass (one K1 launch and one min-only sweep for
+    the saved batch, depths equal to the plain route) and the stepper pool
+    (host threads)."""
+    import numpy as np
+    import torch
+
+    from obman_train_tpu_torch import simulation
+    from obman_train_tpu_torch.cli import traineval
+    from obman_train_tpu_torch.ops.kernels import LAUNCHES
+    from obman_train_tpu_torch.simulation import savemano, simulate
+
+    calls, spans = [], []
+    orig_depths, orig_sample = savemano.max_penetration_depths, simulate.process_sample
+    orig_full = simulation.full_simul
+    full = {}
+
+    def depths(hands, objs, faces, device=None):
+        torch.cuda.synchronize()
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        out = orig_depths(hands, objs, faces, device=device)  # numpy: synchronous
+        calls.append({"B": len(hands), "seconds": time.perf_counter() - t0,
+                      "launches": {k: LAUNCHES[k] - before.get(k, 0) for k in LAUNCHES
+                                   if LAUNCHES[k] != before.get(k, 0)},
+                      "inputs": (np.asarray(hands), np.asarray(objs), faces), "out": out})
+        return out
+
+    def sample(*args, **kw):
+        t0 = time.perf_counter()
+        out = orig_sample(*args, **kw)
+        spans.append((t0, time.perf_counter()))
+        return out
+
+    def full_simul(*args, **kw):
+        t0 = time.perf_counter()
+        out = orig_full(*args, **kw)
+        full["seconds"] = time.perf_counter() - t0
+        full["workers"] = kw.get("workers")
+        return out
+
+    sim_exp = os.path.join(tmp, "simulate")
+    argv = _traineval_argv(sim_exp) + ["--synthetic_size", str(SIM_B), "--resume", exp,
+                                       "--evaluate", "--save_results"]
+    savemano.max_penetration_depths, simulate.process_sample = depths, sample
+    simulation.full_simul = full_simul
+    try:
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        traineval.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+    finally:
+        savemano.max_penetration_depths, simulate.process_sample = orig_depths, orig_sample
+        simulation.full_simul = orig_full
+    sim_dirs = [os.path.join(r, "simulation_results") for r, _, files in
+                os.walk(os.path.join(sim_exp, "save_results")) if "batch_000000.pkl" in files]
+    if len(sim_dirs) != 1:
+        fail(f"traineval --evaluate --save_results wrote {len(sim_dirs)} result dirs")
+    with open(os.path.join(sim_dirs[0], "results.json")) as f:
+        summary = json.load(f)["summary"]
+    if summary["backend"] != "native" or summary["sample_nb"] != SIM_B:
+        fail(f"simulation summary {summary}: want backend native, sample_nb {SIM_B}")
+    want_launches = {"raytri_count": 1, "nn_dir_min": 1}
+    if [c["B"] for c in calls] != [SIM_B] or calls[0]["launches"] != want_launches:
+        fail(f"depth pass calls {[(c['B'], c['launches']) for c in calls]}: want one at "
+             f"B={SIM_B} launching {want_launches}")
+    plain = _plain_depths(*calls[0]["inputs"])
+    if not np.array_equal(calls[0]["out"], plain):
+        fail(f"depth pass differs from the plain route at "
+             f"{int((calls[0]['out'] != plain).sum())} samples")
+    depths_mm = calls[0]["out"]
+    # the saved batch of a briefly trained net may hold no penetration:
+    # hold the depth pass on seeded overlapping scenes at B=256 as well
+    scenes = _seeded_scenes(SIM_B, seed=12)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seeded = savemano.max_penetration_depths(*scenes)
+    seeded_s = time.perf_counter() - t0
+    if not np.array_equal(seeded, _plain_depths(*scenes)):
+        fail("depths of the seeded overlapping scenes differ from the plain route")
+    if (seeded > 0).sum() < SIM_B // 2:
+        fail(f"only {(seeded > 0).sum()} of the seeded scenes penetrate")
+    pool_s = max(e for _, e in spans) - min(s for s, _ in spans)
+    per_sample = np.asarray([e - s for s, e in spans])
+    out = {
+        "summary": summary,
+        "wall_s": wall,
+        "full_simul_s": full["seconds"],
+        "workers": full["workers"],
+        "depth_pass_s": calls[0]["seconds"],
+        "depth_pass_launches": calls[0]["launches"],
+        "depths_equal_plain": True,
+        "samples_penetrating": int((depths_mm > 0).sum()),
+        "depth_mm_max": float(depths_mm.max()),
+        "seeded_scenes": {"depth_pass_s": seeded_s, "equal_plain": True,
+                          "samples_penetrating": int((seeded > 0).sum()),
+                          "depth_mm_mean": float(seeded.mean())},
+        "stepper_pool_s": pool_s,
+        "stepper_samples_per_s": len(spans) / pool_s,
+        "stepper_host_s_per_sample": {"mean": float(per_sample.mean()),
+                                      "max": float(per_sample.max())},
+        "launches": launches,
+        "sim_dir": os.path.dirname(sim_dirs[0]),
+    }
+    log(f"simulation (b) traineval --evaluate --save_results at B={SIM_B}: {wall:.1f} s; "
+        f"depth pass {out['depth_pass_s'] * 1e3:.2f} ms ({calls[0]['launches']}, equal to the "
+        f"plain route, {out['samples_penetrating']} samples penetrating, max "
+        f"{out['depth_mm_max']:.2f} mm; seeded overlapping scenes: {seeded_s * 1e3:.2f} ms, "
+        f"{int((seeded > 0).sum())} penetrating, equal to the plain route); stepper pool {pool_s:.1f} s on {full['workers']} "
+        f"threads, {out['stepper_samples_per_s']:.2f} samples/s, host "
+        f"{per_sample.mean():.3f} s a sample (max {per_sample.max():.3f}); summary {summary}")
+    return out
+
+
+def _sim_intersect(sim_dir):
+    """(c) ``cli.simulate --intersect`` on (b)'s directory: at most two K1
+    launches a sample for the voxels, the first samples' volumes equal to
+    the plain route's."""
+    import numpy as np
+    import torch
+
+    from obman_train_tpu_torch.cli import simulate as simulate_cli
+    from obman_train_tpu_torch.ops.kernels import LAUNCHES
+    from obman_train_tpu_torch.simulation import intersect, savemano
+
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    summary = simulate_cli.main(["--exp_id", sim_dir, "--intersect",
+                                 "--workers", str(min(8, os.cpu_count() or 1))])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    with open(os.path.join(sim_dir, "intersect_results", "results.json")) as f:
+        inter = json.load(f)
+    voxel_launches = launches.get("raytri_count", 0) - 1  # the depth pass's one
+    if summary["sample_nb"] != SIM_B or inter["sample_nb"] != SIM_B:
+        fail(f"cli.simulate summaries {summary}, {inter}: want {SIM_B} samples")
+    if not 0 <= voxel_launches <= 2 * SIM_B:
+        fail(f"cli.simulate --intersect launched K1 {voxel_launches} times for the voxels; "
+             f"want at most 2 a sample")
+    samples = savemano.load_batch_info(os.path.join(sim_dir, "batch_000000.pkl"),
+                                       compute_depth=False)[:SIM_VOLUMES_CHECKED]
+    vols, plain = [], []
+    for s in samples:
+        args = (s["hand_verts"] * 0.001, s["hand_faces"], s["obj_verts"] * 0.001, s["obj_faces"])
+        vols.append(intersect.intersect_vox(*args))
+        plain.append(_plain_volume(*args, 0.005))
+    if vols != plain:
+        fail(f"voxel volumes {vols} differ from the plain route's {plain}")
+    # overlapping scenes, as (b): non-zero volumes against the plain route
+    hands, objs, faces = _seeded_scenes(SIM_VOLUMES_CHECKED, seed=13)
+    hf = savemano._hand_faces()
+    seeded, seeded_plain = [], []
+    for h, o in zip(hands.astype(np.float64) * 0.001, objs.astype(np.float64) * 0.001):
+        seeded.append(intersect.intersect_vox(h, hf, o, faces))
+        seeded_plain.append(_plain_volume(h, hf, o, faces, 0.005))
+    if seeded != seeded_plain or not any(seeded):
+        fail(f"seeded scene volumes {seeded} against the plain route's {seeded_plain}")
+    log(f"simulation (c) cli.simulate --intersect: {wall:.1f} s, launches {launches} "
+        f"({voxel_launches} K1 for the voxels of {SIM_B} samples); volume mean "
+        f"{inter['mean_volume']:.3e} m^3; first {len(vols)} volumes equal to the plain route, "
+        f"and {len(seeded)} seeded overlapping scenes' ({np.mean(seeded):.3e} m^3 mean)")
+    return {"wall_s": wall, "launches": launches, "voxel_k1_launches": voxel_launches,
+            "intersect": inter, "volumes_checked": vols, "seeded_volumes": seeded}
+
+
+def _sim_artifacts(sim_dir, tmp):
+    """(d) ``process_sample(save_artifacts=True)`` on 2 samples: the gif and
+    the trajectory, with the renderer the host has and, where that is
+    matplotlib, once more with it hidden (the PIL frames)."""
+    from obman_train_tpu_torch.simulation import savemano, simulate
+
+    samples = savemano.load_batch_info(os.path.join(sim_dir, "batch_000000.pkl"))[:2]
+    try:
+        import matplotlib  # noqa: F401
+        renderers = ["matplotlib", "PIL"]
+    except ImportError:
+        renderers = ["PIL"]
+    t0 = time.perf_counter()
+    files = []
+    for renderer in renderers:
+        save_dir = os.path.join(tmp, f"artifacts_{renderer}")
+        hidden = renderer == "PIL" and "PIL" != renderers[0]
+        saved = sys.modules.get("matplotlib")
+        if hidden:
+            sys.modules["matplotlib"] = None
+        try:
+            for i, s in enumerate(samples):
+                simulate.process_sample(i, s, save_dir=save_dir, save_artifacts=True)
+        finally:
+            if hidden:
+                sys.modules["matplotlib"] = saved
+        for i in range(len(samples)):
+            for suffix in (".gif", "_traj.npy", "_hand.obj", "_obj.obj", ".json"):
+                path = os.path.join(save_dir, f"{i:06d}{suffix}")
+                if not os.path.exists(path):
+                    fail(f"process_sample wrote no {path} ({renderer})")
+                files.append(os.path.relpath(path, tmp))
+    seconds = time.perf_counter() - t0
+    log(f"simulation (d) process_sample artifacts with {renderers}: {len(files)} files in "
+        f"{seconds:.1f} s")
+    return {"renderers": renderers, "files": files, "seconds": seconds}
+
+
+def _sim_triage(sim_dir, tmp):
+    """(e) ``triage`` on the directory: Chamfer scores from one batched
+    call on the card, within 1e-6 relative of the plain route's."""
+    import numpy as np
+    import torch
+
+    from obman_train_tpu_torch.ops import nnsqdist
+    from obman_train_tpu_torch.ops.kernels import LAUNCHES
+    from obman_train_tpu_torch.visualize import triage
+
+    out_dir = os.path.join(tmp, "triage")
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = triage.triage(sim_dir, out_dir=out_dir, n_show=3)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    samples = triage.load_eval_samples(sim_dir)
+    preds = torch.from_numpy(np.stack([s["obj_verts"] for s in samples])).cuda()
+    gts = torch.from_numpy(np.stack([s["gt_objpoints3d"] for s in samples])).cuda()
+    plain = (nnsqdist.nn_dir_plain(preds, gts)[0].mean(1)
+             + nnsqdist.nn_dir_plain(gts, preds)[0].mean(1)).cpu().numpy()
+    rel = float(np.max(np.abs(res["scores"] - plain) / np.abs(plain)))
+    if rel > 1e-6:
+        fail(f"triage scores differ from the plain route by {rel:.2e} relative")
+    missing = [f"{g}.{e}" for g in ("best", "median", "worst") for e in ("png", "html")
+               if not os.path.exists(os.path.join(out_dir, f"{g}.{e}"))]
+    if missing:
+        fail(f"triage wrote no {missing}")
+    log(f"simulation (e) triage of {len(samples)} samples: {seconds:.1f} s, launches "
+        f"{launches}, scores within {rel:.1e} of the plain route")
+    return {"seconds": seconds, "launches": launches, "scores_max_rel_err": rel,
+            "best": [int(i) for i in res["best"]], "worst": [int(i) for i in res["worst"]]}
+
+
+def _sim_inspect():
+    """(f) ``inspect_feature_grads`` at 256 px, B=32, contact flags (finite
+    norms, launches); on a small input the card's norms within 1e-3 of the
+    CPU port's on the same weights (TF32 off)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from obman_train_tpu_torch.models import BatchSpec
+    from obman_train_tpu_torch.ops.kernels import LAUNCHES
+    from obman_train_tpu_torch.train.debug import inspect_feature_grads
+
+    set_tf32(False)
+    net = _build_net(contact=True, seed=5, device="cuda")
+    batch = synthetic_gt(INSPECT_B, IMAGE, seed=6)
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    norms = inspect_feature_grads(net, batch, BatchSpec())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    if not norms or not all(np.isfinite(v) for v in norms.values()):
+        fail(f"inspect_feature_grads norms {norms}")
+    small = synthetic_gt(INSPECT_SMALL[0], INSPECT_SMALL[1], seed=7)
+    on_card = inspect_feature_grads(net, small, BatchSpec())
+    on_cpu = inspect_feature_grads(copy.deepcopy(net).cpu(), small, BatchSpec(), device="cpu")
+    rel = {k: abs(on_card[k] - on_cpu[k]) / max(abs(on_cpu[k]), 1e-30) for k in on_cpu}
+    if on_card.keys() != on_cpu.keys() or max(rel.values()) > 1e-3:
+        fail(f"inspect_feature_grads on the card vs the CPU port: {rel}")
+    log(f"simulation (f) inspect_feature_grads B={INSPECT_B} {IMAGE} px: {seconds:.2f} s, "
+        f"launches {launches}, norms {norms}; small input vs the CPU port: worst "
+        f"{max(rel.values()):.1e} relative")
+    del net
+    torch.cuda.empty_cache()
+    return {"seconds": seconds, "launches": launches, "norms": norms,
+            "cpu_max_rel_err": max(rel.values())}
+
+
+def _sim_import(exp, tmp):
+    """(g) ``cli.import_torch`` of a reference-style checkpoint written from
+    phase 7's net (``module.`` keys, an ``opt.pkl``): its DemoModel equals
+    the source experiment's bit for bit on the card."""
+    import argparse
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from obman_train_tpu_torch.cli import import_torch
+    from obman_train_tpu_torch.demo import DemoModel
+    from obman_train_tpu_torch.ops.kernels import LAUNCHES
+    from obman_train_tpu_torch.train.checkpoint import CHECKPOINT_NAME, load_config
+
+    ref = os.path.join(tmp, "reference")
+    os.makedirs(ref, exist_ok=True)
+    payload = torch.load(os.path.join(exp, CHECKPOINT_NAME), map_location="cpu",
+                         weights_only=True)
+    torch.save({"epoch": payload["epoch"],
+                "state_dict": {"module." + k: v for k, v in payload["state_dict"].items()}},
+               os.path.join(ref, "checkpoint.pth.tar"))
+    m = load_config(exp).model
+    with open(os.path.join(ref, "opt.pkl"), "wb") as f:
+        pickle.dump(argparse.Namespace(
+            resnet_version=m.resnet_version, mano_comps=m.mano.ncomps,
+            hidden_neurons=list(m.mano.base_neurons), use_shape=m.mano.use_shape,
+            atlas_predict_trans=m.atlas.predict_trans,
+            atlas_predict_scale=m.atlas.predict_scale), f)
+    ported = os.path.join(tmp, "ported")
+    t0 = time.perf_counter()
+    import_torch.main(["--torch_checkpoint", os.path.join(ref, "checkpoint.pth.tar"),
+                       "--exp_id", ported, "--mano_assets", "synthetic"])
+    seconds = time.perf_counter() - t0
+    frame = np.random.default_rng(8).integers(0, 256, (480, 640, 3)).astype(np.uint8)
+    LAUNCHES.clear()
+    got = DemoModel(exp_dir=ported, image_size=m.image_size).predict_dual(frame)
+    want = DemoModel(exp_dir=exp).predict_dual(frame)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    diff = [k for k in want if k not in got or not np.array_equal(got[k], want[k])]
+    if diff or got.keys() != want.keys():
+        fail(f"imported DemoModel differs from the source experiment's at {diff}")
+    log(f"simulation (g) import_torch of phase 7's net: {seconds:.1f} s, DemoModel equal bit "
+        f"for bit on {sorted(want)}; launches {launches}")
+    return {"seconds": seconds, "equal_keys": sorted(want), "launches": launches}
+
+
+def phase_simulation(exp, tmp):
+    """Phase 10 (see the module docstring) on phase 7's contact experiment."""
+    from obman_train_tpu_torch.simulation.simulate import simulation_backend
+
+    t0 = time.perf_counter()
+    backend = simulation_backend()
+    if backend != "native":
+        fail(f"simulation backend {backend!r}: the C++ stepper did not build")
+    result = {"backend": backend, "batch": SIM_B, "cpu_count": os.cpu_count()}
+    result["evaluate"] = _sim_evaluate(exp, tmp)
+    sim_dir = result["evaluate"].pop("sim_dir")
+    result["intersect"] = _sim_intersect(sim_dir)
+    result["artifacts"] = _sim_artifacts(sim_dir, tmp)
+    result["triage"] = _sim_triage(sim_dir, tmp)
+    result["inspect"] = _sim_inspect()
+    result["import_torch"] = _sim_import(exp, tmp)
+    result["seconds"] = time.perf_counter() - t0
+    log(f"simulation phase: {result['seconds']:.1f} s")
+    return result
+
+
 def _optimizer_matches(state, saved):
     """Whether the optimizer's moments equal the saved ones."""
     import torch
@@ -2014,6 +2521,7 @@ def main() -> None:
     kind, count, smi_line, versions = phase_device()
     phase_build()
     entry = phase_kernels()
+    voxel_entries = phase_voxel_kernels()
     nn_entries = phase_nn_kernels()
     phase_backward()
     large = phase_large_cloud()
@@ -2027,16 +2535,32 @@ def main() -> None:
             f"{json.dumps(te['tf32'])}), bare step {json.dumps(train['samples_per_s'])}")
         serving = phase_serving(te["exp"], tmp)
         precision = phase_precision(tmp)
+        simulation = phase_simulation(te["exp"], tmp)
     # launches: K1-K3 from run (a) of the training entry point, the main path
     # of this slice (with one train step's beside them); the large-cloud
     # rows', from the large-cloud Chamfer path
     paths = {"traineval": te["launches"], "train_step": train["launches"],
-             "large_cloud_chamfer": large}
+             "large_cloud_chamfer": large,
+             "simulate_intersect_run": simulation["intersect"]["launches"]}
     entry["path"] = "traineval"
     for e in nn_entries:
         if e["path"] == "train_step":
             e["path"] = "traineval"
     figure = te["figures"]["figure_forward_launches"]
+    # phase 10's paths, each counted from 0
+    sim_paths = {
+        "traineval_evaluate_simulate_run": simulation["evaluate"]["launches"],
+        "depth_pass": simulation["evaluate"]["depth_pass_launches"],
+        "simulate_intersect_run": simulation["intersect"]["launches"],
+        "triage": simulation["triage"]["launches"],
+        "inspect_feature_grads": simulation["inspect"]["launches"],
+        "import_torch_demo": simulation["import_torch"]["launches"],
+    }
+    for e in (entry, *voxel_entries, *nn_entries):
+        e["launches_simulation_paths"] = {
+            k: v.get(e.get("counter", e["name"]), 0) for k, v in sim_paths.items()}
+    for e in voxel_entries:
+        e["launches"] = paths[e["path"]][e["counter"]]
     for e in (entry, *nn_entries):
         counter = e.get("counter", e["name"])
         e["launches"] = paths[e["path"]][counter]
@@ -2063,7 +2587,7 @@ def main() -> None:
                    for k, v in precision["traineval"].items() if "launches" in v},
             }
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [entry, *nn_entries]}), flush=True)
+    print(json.dumps({"kernels": [entry, *voxel_entries, *nn_entries]}), flush=True)
     print(json.dumps({"traineval": {
         **{k: te[k] for k in ("synthetic_size", "batch", "tf32", "cpu_count", "workers",
                               "launches", "launches_loader_processes_run",
@@ -2076,6 +2600,7 @@ def main() -> None:
         "passes": te["passes"]}}), flush=True)
     print(json.dumps({"serving": {"host_libraries": versions, **serving}}), flush=True)
     print(json.dumps({"precision": precision}), flush=True)
+    print(json.dumps({"simulation": simulation}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

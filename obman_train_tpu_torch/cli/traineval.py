@@ -291,9 +291,6 @@ def check_ported(args) -> None:
     unported = [
         (args.distributed, "--distributed: multi-process training is the DDP "
                            "slice (ROADMAP queue 1, item 8)"),
-        (args.evaluate and args.save_results and not args.no_simulate,
-         "simulation after --evaluate --save_results is the host-tooling slice "
-         "(ROADMAP queue 1, item 6); pass --no_simulate"),
     ]
     for hit, msg in unported:
         if hit:
@@ -444,6 +441,13 @@ def main(argv=None):
                          profile_dir=args.profile_dir)
     if cfg.evaluate:
         print("Eval metrics:", {k: round(float(v), 4) for k, v in metrics.items()})
+        if cfg.save_results and not args.no_simulate:
+            from obman_train_tpu_torch.simulation import full_simul
+
+            sim_dir = os.path.join(cfg.exp_id, "save_results", "val", f"epoch_{start_epoch}")
+            summary = full_simul(sim_dir, workers=cfg.data.workers,
+                                 vhacd_exe=args.vhacd_exe, device=device)
+            print("Simulation:", summary)
     print("All done !")
     return state, metrics
 

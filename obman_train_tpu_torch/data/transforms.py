@@ -18,7 +18,9 @@ input pipeline: the port's own copy of the JAX package's
 - the PIL-style Gaussian blur: cv2 ``GaussianBlur((0, 0), sigma)`` when
   cv2 imports, else scipy.
 
-OBJ loading and mesh-surface sampling belong to the real-dataset slice.
+- ``fast_load_obj``, the reference's Wavefront parser with its quirks
+  (JAX :434-510), which the simulation's OBJ dumps round-trip through.
+  Mesh-surface sampling belongs to the real-dataset slice.
 """
 
 from __future__ import annotations
@@ -381,3 +383,80 @@ def gaussian_blur(img: np.ndarray, radius: float) -> np.ndarray:
         from scipy.ndimage import gaussian_filter
 
         return gaussian_filter(img, sigma=(radius, radius, 0))
+
+
+def fast_load_obj(file_obj) -> list:
+    """Wavefront parser -> [{'vertices', 'faces'}], matching the reference
+    ``loadutils.fast_load_obj`` (loadutils.py:3-123, itself trimesh-derived)
+    exactly — including its quirks, verified by executed-reference goldens:
+
+    - face corners are deduplicated by their FULL ``v/vt/vn`` token, so the
+      same position referenced with different normals/uvs becomes multiple
+      vertices;
+    - output vertices are ordered by the lexicographic sort of those
+      tokens (so "10" sorts before "2");
+    - quads triangulate as (0,1,2),(2,3,0); 'o' lines split objects.
+
+    Divergence: faces with >4 corners fan-triangulate (0,k,k+1) — the
+    reference blindly reshapes the corner list to (-1, 3) there
+    (loadutils.py:91-94), which raises or silently misaligns every
+    subsequent face on such meshes.
+    """
+    if isinstance(file_obj, str):
+        with open(file_obj) as f:
+            text = f.read()
+    else:
+        text = file_obj.read()
+    if hasattr(text, "decode"):
+        text = text.decode("utf-8")
+    text = text.replace("\r\n", "\n").replace("\r", "\n") + " \n"
+
+    meshes = []
+    positions: list = []
+    corner_pos: list = []        # position per distinct face token
+    face_idx: list = []          # flat face corner indices into corner_pos
+    remap: dict = {}
+
+    def flush():
+        nonlocal corner_pos, face_idx, remap
+        if face_idx:
+            vertices = np.asarray(corner_pos, np.float64).reshape(-1, 3)
+            faces = np.asarray(face_idx, np.int64).reshape(-1, 3)
+            keys = np.asarray(list(remap.keys()))
+            values = np.asarray(list(remap.values()))
+            vert_order = values[keys.argsort()]
+            face_order = np.zeros(len(vertices), np.int64)
+            face_order[vert_order] = np.arange(len(vertices), dtype=np.int64)
+            meshes.append(
+                {"vertices": vertices[vert_order], "faces": face_order[faces]}
+            )
+        corner_pos, face_idx, remap = [], [], {}
+
+    for line in text.split("\n"):
+        parts = line.strip().split()
+        if len(parts) < 2:
+            continue
+        if parts[0] == "v":
+            positions.append([float(x) for x in parts[1:4]])
+        elif parts[0] == "f":
+            ft = parts[1:]
+            if len(ft) == 4:
+                # the reference's quad quirk: (0,1,2),(2,3,0)
+                ft = [ft[0], ft[1], ft[2], ft[2], ft[3], ft[0]]
+            elif len(ft) > 4:
+                # general n-gons fan-triangulate (loadutils.py polygon fan)
+                ft = [
+                    t
+                    for k in range(1, len(ft) - 1)
+                    for t in (ft[0], ft[k], ft[k + 1])
+                ]
+            for token in ft:
+                if token not in remap:
+                    remap[token] = len(remap)
+                    v_id = int(token.split("/")[0]) - 1
+                    corner_pos.append(positions[v_id])
+                face_idx.append(remap[token])
+        elif parts[0] == "o":
+            flush()
+    flush()
+    return meshes

@@ -159,6 +159,7 @@ class HandNet(nn.Module):
         contact: bool = True,
         dropout_gen: Optional[torch.Generator] = None,
         points_gen: Optional[torch.Generator] = None,
+        feature_probe: Optional[torch.Tensor] = None,
     ) -> Tuple[Optional[torch.Tensor], Dict[str, Any], Dict[str, Any]]:
         """Returns ``(total_loss, results, losses)`` like the JAX
         ``HandNet.__call__`` with ``train=False``. ``regul_scale``
@@ -171,7 +172,10 @@ class HandNet(nn.Module):
         draws the MANO MLP's dropout masks in ``train()`` with
         ``fc_dropout > 0``. ``points_gen`` draws the random-cloud decoder's
         sphere points (``atlas.mesh=False``); without one they are the
-        points of seed 0, as the JAX eval step's ``PRNGKey(0)``."""
+        points of seed 0, as the JAX eval step's ``PRNGKey(0)``.
+        ``feature_probe`` (B, feature size) is added to the image features:
+        a zero probe whose gradient is the features' gradient
+        (``train/debug.py``, JAX :152-156)."""
         if not contact and not no_loss:
             raise ValueError("contact=False needs no_loss=True: the losses read the block")
         cfg = self.cfg
@@ -193,6 +197,8 @@ class HandNet(nn.Module):
         # the features in at least float32 (JAX :151, :159); a float64 net
         # (a reference copy on the CPU) keeps float64
         features = _at_least_f32(self.base_net(image)[0])
+        if feature_probe is not None:
+            features = features + feature_probe
         if cfg.atlas.separate_encoder:
             atlas_infeatures = _at_least_f32(self.atlas_base_net(image)[0])
             if return_features:

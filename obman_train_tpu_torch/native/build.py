@@ -1,12 +1,14 @@
-"""g++ build and ctypes loader of the host image warp (the JAX package's
-``native/build.py:21-75``, its ``imageproc`` half).
+"""g++ build and ctypes loaders of the host C++ (the JAX package's
+``native/build.py``): the image warp ``imageproc.cpp`` and the grasp
+simulation's rigid-body stepper ``physics.cpp``.
 
-``native/imageproc.cpp`` is compiled at first use into the git-ignored
-``native/lib/``, under a name that carries a hash of the source, the
-flags and the host CPU (the build uses ``-march=native``, so a library
-built on one machine is not loaded on another), and loaded through
-ctypes. A failed build raises: the training path has no quiet
-switch to the numpy warp.
+Each source is compiled at first use into the git-ignored ``native/lib/``,
+under a name that carries a hash of the source, the flags and the host CPU
+(the build uses ``-march=native``, so a library built on one machine is
+not loaded on another), and loaded through ctypes. A failed build of the
+warp raises: the training path has no quiet switch to the numpy warp. A
+failed build of the stepper returns ``None``, the JAX package's semantics:
+``simulation.simulate`` then warns and takes its coarse numpy integrator.
 """
 
 from __future__ import annotations
@@ -17,11 +19,14 @@ import os
 import platform
 import subprocess
 import threading
+from typing import Optional
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _LIB_DIR = os.path.join(_DIR, "lib")
 _LOCK = threading.Lock()
+_PHYSICS_LOCK = threading.Lock()  # its own, so the two builds can overlap
 _imageproc = None  # the loaded library, once built
+_physics = None  # the loaded stepper; False once its build failed
 
 
 _FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-march=native"]
@@ -80,3 +85,31 @@ def load_imageproc_lib() -> ctypes.CDLL:
             lib.warp_affine_f32.restype = None
             _imageproc = lib
     return _imageproc
+
+
+def load_physics_lib() -> Optional[ctypes.CDLL]:
+    """Build (once per source) and load the rigid-body stepper; ``None``
+    when g++ fails or is missing (not retried in this process)."""
+    global _physics
+    with _PHYSICS_LOCK:
+        if _physics is None:
+            try:
+                lib = ctypes.CDLL(_build("physics.cpp", "libobman_torch_physics"))
+            except (RuntimeError, OSError):
+                _physics = False
+                return None
+            c_dp = ctypes.POINTER(ctypes.c_double)
+            c_ip = ctypes.POINTER(ctypes.c_int32)
+            lib.run_grasp_simulation.argtypes = [
+                c_dp, ctypes.c_int, c_ip, ctypes.c_int,    # hand verts, faces
+                c_dp, ctypes.c_int, c_ip, ctypes.c_int,    # object verts, faces
+                ctypes.c_double, ctypes.c_int, ctypes.c_int,  # dt, steps, substeps
+                ctypes.c_double,                           # gravity on y
+                ctypes.c_double, ctypes.c_double,          # friction (hand, object)
+                ctypes.c_double, ctypes.c_double,          # restitution (hand, object)
+                ctypes.c_double,                           # contact margin
+                c_dp, c_dp,                                # displacement, trajectory
+            ]
+            lib.run_grasp_simulation.restype = ctypes.c_int
+            _physics = lib
+    return _physics or None

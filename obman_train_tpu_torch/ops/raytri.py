@@ -27,8 +27,9 @@ TABLE_WIDTH = 16
 # The ray direction and tolerance as the float32 values both versions use.
 _DIR_F32 = tuple(torch.tensor(RAY_DIRECTION, dtype=torch.float32).tolist())
 _TOL_F32 = torch.tensor(TOL, dtype=torch.float32).item()
-# Batch elements per step of the plain version: its (b, P, T) temporaries
-# stay ~64 MB each at P=778, T=1280.
+# (point, triangle) pairs per step of the plain version: its temporaries
+# stay ~64 MB each (chunked over the batch, and over the points of a
+# large example such as a voxel grid).
 _PLAIN_ELEMS = 1 << 24
 
 
@@ -76,10 +77,11 @@ def raytri_count_plain(points: torch.Tensor, table: torch.Tensor) -> torch.Tenso
     d0, d1, d2 = _direction(points.device)
     tol = torch.tensor(TOL, dtype=torch.float32, device=points.device)
     counts = torch.empty((B, P), dtype=torch.int32, device=points.device)
-    step = max(1, _PLAIN_ELEMS // max(1, P * T))
-    for b0 in range(0, B, step):
-        pts = points[b0 : b0 + step, :, None, :]       # (b, P, 1, 3)
-        tb = table[b0 : b0 + step, None, :, :]         # (b, 1, T, 16)
+    rows = max(1, _PLAIN_ELEMS // max(1, T))
+    step = max(1, rows // max(1, P))
+    for b0, p0 in ((b, p) for b in range(0, B, step) for p in range(0, P, rows)):
+        pts = points[b0 : b0 + step, p0 : p0 + rows, None, :]  # (b, p, 1, 3)
+        tb = table[b0 : b0 + step, None, :, :]                 # (b, 1, T, 16)
         px, py, pz = pts[..., 0], pts[..., 1], pts[..., 2]
         invdet = tb[..., 3]
         tx = px - tb[..., 0]
@@ -94,7 +96,7 @@ def raytri_count_plain(points: torch.Tensor, table: torch.Tensor) -> torch.Tenso
         t = (tb[..., 8] * qx + tb[..., 9] * qy + tb[..., 10] * qz) * invdet
         hit = (u > 0) & (u < 1) & (v > 0) & ((u + v) < 1) & (t >= tol)
         hit = hit & (tb[..., 7] > 0)
-        counts[b0 : b0 + step] = torch.sum(hit, dim=-1, dtype=torch.int32)
+        counts[b0 : b0 + step, p0 : p0 + rows] = torch.sum(hit, dim=-1, dtype=torch.int32)
     return counts
 
 

@@ -506,3 +506,96 @@ def test_rung_planes_on_cuda(cuda, N, M):
             gap = (exact(sel[i]) - exact(ref[i])).abs()[differ]
             assert gap.numel() == 0 or float(gap.max()) <= bound * mag, (dt, int(differ.sum()))
             torch.testing.assert_close(sel[i - 1].double(), exact(sel[i]), rtol=1e-5, atol=1e-3)
+
+
+def _hand_scenes(B, seed):
+    """Hands (B, 778, 3) of the synthetic MANO model at seeded poses (mm),
+    icosphere-3 objects (B, 642, 3) placed on a hand vertex, their faces."""
+    from obman_train_tpu_torch.models.mano import ManoLayer, mano_forward
+
+    rng = np.random.default_rng(seed)
+    layer = ManoLayer(synthetic_mano_assets("right"))
+    pose = torch.from_numpy(rng.normal(0, 0.5, (B, 9)).astype(np.float32))
+    with torch.no_grad():
+        hands = mano_forward(layer, pose)[0].numpy()
+    verts, faces = icosphere(3)
+    centres = hands[np.arange(B), rng.integers(0, 778, B)] + rng.normal(0, 15, (B, 3))
+    objs = verts[None] * rng.uniform(20, 45, (B, 1, 1)) + centres[:, None]
+    return hands, objs.astype(np.float32), faces.astype(np.int32)
+
+
+def test_penetration_depths_on_cuda_equal_plain(cuda):
+    """A saved batch's depths at B=256: one K1 launch and one min-only
+    sweep, equal bit for bit to the plain route on the card. Against the
+    CPU port, whose nearest neighbours come from the dense float32 plane
+    ``|x|^2 + |y|^2 - 2 x.y``, the squared depths agree within 4 float32
+    ulps of the plane's magnitude (measured on the CPU with the plain
+    route in the kernel's place: at most 0.96 of one)."""
+    from obman_train_tpu_torch.simulation.savemano import max_penetration_depths
+
+    hands, objs, faces = _hand_scenes(256, seed=0)
+    LAUNCHES.clear()
+    got = max_penetration_depths(hands, objs, faces, device=cuda)
+    assert LAUNCHES[raytri.KERNEL] == 1 and LAUNCHES[nnsqdist.KERNEL_MIN] == 1
+    assert sum(LAUNCHES.values()) == 2
+    hv, ov = torch.from_numpy(hands).to(cuda), torch.from_numpy(objs).to(cuda)
+    exterior = raytri.mesh_contains_points_plain(hv, ov[:, torch.from_numpy(faces).long()])
+    min_sq = nnsqdist.nn_dir_plain(hv, ov)[0]
+    want = (np.sqrt(np.maximum(min_sq.cpu().numpy(), 0))
+            * ~exterior.cpu().numpy()).max(axis=1)
+    np.testing.assert_array_equal(got, want)
+    assert (got > 0).sum() > 128  # most scenes overlap
+    cpu = max_penetration_depths(hands, objs, faces, device="cpu").astype(np.float64)
+    scale = (hands**2).sum(-1).max(1) + (objs**2).sum(-1).max(1)
+    gap = np.abs(got.astype(np.float64) ** 2 - cpu**2)
+    assert (gap <= 4 * np.finfo(np.float32).eps * scale).all()
+
+
+def test_voxel_occupancy_on_cuda_equals_plain(cuda):
+    """``intersect_vox``'s occupancy on a 5 mm voxel grid around a hand (one
+    launch for the whole grid) against the plain inside test, and the
+    volumes against the CPU port's."""
+    from obman_train_tpu_torch.simulation import intersect
+    from obman_train_tpu_torch.simulation.savemano import _hand_faces
+
+    hands, objs, faces = _hand_scenes(4, seed=1)
+    for hand, obj in zip(hands.astype(np.float64) * 0.001, objs.astype(np.float64) * 0.001):
+        grid = intersect.voxel_grid(hand, hand, 0.005)
+        before = LAUNCHES[raytri.KERNEL]
+        got = intersect._occupancy(grid, hand, _hand_faces(), cuda)
+        assert LAUNCHES[raytri.KERNEL] == before + 1
+        pts = torch.from_numpy(grid.astype(np.float32)).to(cuda)[None]
+        tri = torch.from_numpy(hand.astype(np.float32)).to(cuda)[
+            torch.from_numpy(_hand_faces()).long().to(cuda)][None]
+        want = ~raytri.mesh_contains_points_plain(pts, tri)[0].cpu().numpy()
+        np.testing.assert_array_equal(got, want)
+        assert got.any() and len(grid) > 10000
+        vol = intersect.intersect_vox(hand, _hand_faces(), obj, faces, device=cuda)
+        assert vol == intersect.intersect_vox(hand, _hand_faces(), obj, faces, device="cpu")
+
+
+def test_simulate_cli_on_cuda(cuda, tmp_path, monkeypatch):
+    """``cli.simulate --intersect`` on the card: the stepper on the host,
+    the depths and voxels on the device, the CPU port's summaries."""
+    import json
+    import pickle
+
+    from obman_train_tpu_torch.cli import simulate
+    from obman_train_tpu_torch.simulation import intersect
+    from obman_train_tpu_torch.simulation import simulate as sim
+
+    hands, objs, _ = _hand_scenes(4, seed=2)
+    with open(tmp_path / "batch_000000.pkl", "wb") as f:
+        pickle.dump({"batch": {}, "root": "wrist",
+                     "results": {"verts": hands, "objpoints3d": objs}}, f)
+    monkeypatch.delenv("OBMAN_PLATFORM", raising=False)
+    got = simulate.main(["--exp_id", str(tmp_path), "--intersect", "--workers", "4"])
+    with open(tmp_path / "intersect_results" / "results.json") as f:
+        got_vol = json.load(f)
+    want = sim.full_simul(str(tmp_path), workers=1, device="cpu")
+    assert got["backend"] == "native" and got["sample_nb"] == 4
+    assert got["mean_dist"] == want["mean_dist"]
+    # the mean depth, kernel against the CPU's plane: 4 plane ulps at a
+    # 1 mm depth are ~1e-2 mm (see the test above)
+    np.testing.assert_allclose(got["max_depths"], want["max_depths"], rtol=0, atol=1e-2)
+    assert got_vol == intersect.full_intersect(str(tmp_path), device="cpu")

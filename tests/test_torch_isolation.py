@@ -92,8 +92,31 @@ def test_walk_covers_every_slice_module():
         # the training recipe: the uint8 chain, process workers, unfrozen BN
         "obman_train_tpu_torch.models.resnet", "obman_train_tpu_torch.models.branches",
         "obman_train_tpu_torch.models.handnet",
+        # the grasp simulation and the evaluation tools
+        "obman_train_tpu_torch.simulation", "obman_train_tpu_torch.simulation.simulate",
+        "obman_train_tpu_torch.simulation.savemano", "obman_train_tpu_torch.simulation.intersect",
+        "obman_train_tpu_torch.simulation.fixtures", "obman_train_tpu_torch.simulation.compare",
+        "obman_train_tpu_torch.cli.simulate", "obman_train_tpu_torch.cli.process_table",
+        "obman_train_tpu_torch.cli.import_torch", "obman_train_tpu_torch.utils.tables",
+        "obman_train_tpu_torch.train.debug", "obman_train_tpu_torch.visualize.triage",
     ):
         assert name in walked, name
+
+
+def test_native_sources_are_the_ports_own_files():
+    """The port builds its own copies of the host C++: files of its own
+    under ``obman_train_tpu_torch/native/`` (the stepper a byte copy of the
+    JAX package's), built into the port's own library directory."""
+    from obman_train_tpu_torch.native import build
+
+    for name in ("physics.cpp", "imageproc.cpp"):
+        own = os.path.join(PACKAGE, "native", name)
+        assert os.path.isfile(own) and not os.path.islink(own), name
+        assert not os.path.samefile(own, os.path.join(REPO, "obman_train_tpu", "native", name))
+    with open(os.path.join(PACKAGE, "native", "physics.cpp"), "rb") as a, \
+            open(os.path.join(REPO, "obman_train_tpu", "native", "physics.cpp"), "rb") as b:
+        assert a.read() == b.read()
+    assert os.path.realpath(build._LIB_DIR).startswith(os.path.realpath(PACKAGE) + os.sep)
 
 
 SCRIPTS = ["chip_smoke.py"] + sorted(

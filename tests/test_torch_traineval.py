@@ -5,7 +5,9 @@
   ``args_to_config`` gives the JAX package's config, JSON for JSON;
 - the flags of later slices raise, and without ``OBMAN_PLATFORM=cpu`` the
   CLI wants a GPU; the precision rungs (``--compute_dtype bfloat16``, each
-  ``--geometry_dtype``) and ``--no_atlas_mesh`` train one epoch; ``--mano_assets <dir>`` reads real MANO pkl files;
+  ``--geometry_dtype``) and ``--no_atlas_mesh`` train one epoch;
+  ``--evaluate --save_results`` runs the grasp simulation over the val
+  samples; ``--mano_assets <dir>`` reads real MANO pkl files;
 - ``--loader_processes`` trains the run the threaded loader trains, bit
   for bit; ``--no_freeze_batchnorm`` with ``--fc_dropout`` trains (the
   running statistics move) and its dropout masks follow ``--manual_seed``;
@@ -75,13 +77,14 @@ def test_args_to_config_matches_jax(argv):
 
 
 # the ids are those of the cases when all five raised; bf16, geometry_dtype
-# and the random cloud are ported now and train (``refused`` None)
+# and the random cloud are ported now and train, and the evaluation with
+# saved results runs the grasp simulation (``refused`` None)
 @pytest.mark.parametrize("extra,refused", [
     pytest.param(["--distributed"], "DDP", id="extra0-DDP"),
     pytest.param(["--compute_dtype", "bfloat16"], None, id="extra1-bf16"),
     pytest.param(["--geometry_dtype", "float32_select"], None, id="extra2-geometry_dtype"),
     pytest.param(["--no_atlas_mesh"], None, id="extra3-random-cloud"),
-    pytest.param(["--evaluate", "--save_results"], "host-tooling", id="extra4-host-tooling"),
+    pytest.param(["--evaluate", "--save_results"], None, id="extra4-host-tooling"),
 ])
 def test_flags_of_later_slices_raise(cpu, tmp_path, extra, refused):
     if refused is not None:
@@ -89,7 +92,22 @@ def test_flags_of_later_slices_raise(cpu, tmp_path, extra, refused):
             pcli.main(BASE + ["--exp_id", str(tmp_path / "x")] + extra)
         assert not os.path.exists(tmp_path / "x")  # raised before any side effect
         return
+    if "--evaluate" in extra:
+        _simulates(tmp_path / "x", extra)
+        return
     _trains(tmp_path / "x", extra)
+
+
+def _simulates(exp, extra):
+    """``--evaluate --save_results`` (no ``--no_simulate``) evaluates the
+    fresh weights and runs the grasp simulation over every val sample."""
+    pcli.main(BASE + ["--exp_id", str(exp)] + extra)
+    sim = os.path.join(exp, "save_results", "val", "epoch_0", "simulation_results")
+    with open(os.path.join(sim, "results.json")) as f:
+        results = json.load(f)
+    assert results["summary"]["sample_nb"] == 8  # --synthetic_size 8 val samples
+    assert results["summary"]["backend"] == "native"
+    assert len(results["per_sample"]) == 8
 
 
 def _trains(exp, extra):
