@@ -110,12 +110,34 @@ each fatal on failure:
    px, B=32, contact flags, and on a small input within 1e-3 of the CPU
    port's; (g) ``cli.import_torch`` of a reference-style checkpoint
    written from phase 7's net, whose ``DemoModel`` equals the source's bit
-   for bit.
+   for bit;
+11. the real-dataset slice, on trees fabricated in the phase's working
+   directory (contact config, ResNet-18, 256x256, B=256, PyTorch's default
+   TF32): ``fabricate_obman`` writes 512 train and 256 val ObMan samples
+   (JPEG frames, meta pickles, a ShapeNet-style model), ``fabricate_fhb``
+   an FHB tree (the 599/575 split file, 512 train and 256 test annotated
+   480x270 frames, each object within 5 mm of a joint); (a) the
+   ``BatchLoader`` over ``get_dataset("obman")`` on 8 threads, with the
+   host jitter and with ``--device_augment``: samples/s, ms a sample by
+   stage (``tools/torch_data_pipeline.py``), batches of decoded uint8
+   frames and finite annotations; (b) ``cli.traineval``'s ``main()`` with
+   ``--train_datasets obman --val_datasets obman --obman_root ...
+   --shapenet_root ...``, 1 epoch, then 1 epoch with
+   ``--loader_processes``; (c) 1 epoch with ``--train_datasets fhbhands
+   --val_datasets fhbhands --val_splits test`` (FHB at the CLI's default
+   root, ``datasymlinks/fhbhands``): the object-mesh branch and
+   ``points_from_mesh`` into the Chamfer kernels; every kept FHB frame's
+   object within the contact filter's 10 mm of a joint. Launches per
+   train step and per val forward must be the synthetic loop's (K1 1,
+   argmin 6, min 1 a train step), less FHB's one min-only sweep (FHB has no
+   GT hand vertices, so no GT contact distances); the loop's samples/s
+   (epoch wall clock) and data-wait share, finite losses.
 
 Output: progress lines, then one JSON line ``{"kernels": [...]}``, one
 JSON line ``{"traineval": {...}}``, one JSON line ``{"serving": {...}}``,
 one JSON line ``{"precision": {...}}``, one JSON line
-``{"simulation": {...}}``, the ``nvidia-smi`` line, and as the last line
+``{"simulation": {...}}``, one JSON line ``{"datasets": {...}}``, the
+``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 With no GPU, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -2498,6 +2520,222 @@ def phase_simulation(exp, tmp):
     return result
 
 
+# Phase 11, the real-dataset adapters (JAX data/obman.py, data/fhbhands.py,
+# data/fabricate.py; the real-decode pipeline of bench.py:704-756) on trees
+# fabricated under the phase's working directory, which is also where the
+# adapters write their annotation caches and where the CLI finds FHB at its
+# default root, datasymlinks/fhbhands. Sizes: 2 train steps and 1 val step
+# an epoch at B=256.
+REAL_TRAIN, REAL_VAL = 512, 256
+FHB_FRAMES_PER_SEQ = 8
+CONTACT_THRESH_MM = 10.0  # FHB's contact filter (fhbhands.py, filter_thresh)
+
+
+def _real_argv(exp, names, extra=()):
+    """Phase 7's contact-config flags on real-layout datasets, one epoch."""
+    argv = _traineval_argv(exp)
+    for flag in ("--train_datasets", "--val_datasets"):
+        argv[argv.index(flag) + 1] = names
+    return argv + ["--epochs", "1"] + list(extra)
+
+
+def _real_pipeline(tree):
+    """(a) ``BatchLoader`` over ``get_dataset("obman")`` on 8 threads at
+    B=256, with the host jitter and with ``--device_augment``'s host path:
+    samples/s of a timed pass after a warm-up pass, ms a sample by stage
+    (``tools/torch_data_pipeline.py``'s split, ``fetch`` = JPEG decode and
+    meta read), and the batches' content: uint8 frames of real decoded
+    pixels, finite annotations."""
+    import importlib.util
+
+    import numpy as np
+
+    from obman_train_tpu_torch.data import factory, loader
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_data_pipeline", os.path.join(HERE, "tools", "torch_data_pipeline.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    out = {}
+    for name, da in (("host_jitter", False), ("device_augment", True)):
+        out[name] = tool.measure_real_decode(tree, 64, B_FULL, da)
+        ds = factory.get_dataset(
+            "obman", "train", meta={"obman_root": os.path.join(tree, "obman"),
+                                    "shapenet_root": os.path.join(tree, "shapenet")},
+            inp_res=IMAGE, device_augment=da)
+        batch = next(iter(loader.BatchLoader(ds, batch_size=B_FULL, num_workers=8)))
+        img = batch["images"]
+        if img.shape != (B_FULL, IMAGE, IMAGE, 3) or img.dtype != np.uint8 or img.std() < 1:
+            fail(f"obman batch images {img.shape} {img.dtype} std {img.std():.2f}")
+        bad = [k for k, v in batch.items() if v.dtype.kind == "f" and not np.isfinite(v).all()]
+        if bad or batch["objpoints3d"].shape != (B_FULL, 600, 3):
+            fail(f"obman batch: non-finite {bad}, objpoints {batch['objpoints3d'].shape}")
+        log(f"datasets (a) obman pipeline, {name}: {out[name]['threads']['samples_per_s']:.1f} "
+            f"samples/s on 8 threads at B={B_FULL}; {out[name]['per_sample_ms_median']:.2f} ms a "
+            f"sample in one thread, stages {json.dumps(out[name]['stage_ms_median'])}")
+    return out
+
+
+def _without_gt_verts(launches):
+    """The launches of a step whose batch has no GT hand vertices (FHB):
+    the GT contact distances, the one min-only sweep of ``min_sqdist_to``
+    (models/handnet.py, ``has_verts3d and has_objpoints3d``), are not
+    computed; the rest is the synthetic loop's."""
+    out = dict(launches)
+    out["nn_dir_min"] -= 1
+    return {k: v for k, v in out.items() if v}
+
+
+def _real_traineval(runs):
+    """(b), (c): ``cli.traineval``'s ``main()`` on the card for each
+    ``(label, argv, gt_verts)``, every epoch pass counted: launches per
+    train step and per val forward (the synthetic loop's, less the GT
+    contact distances' sweep where the dataset has no GT hand vertices),
+    samples/s from the pass's wall clock, the data-wait share; finite
+    logged values."""
+    import numpy as np
+    import torch
+
+    from obman_train_tpu_torch.cli import traineval
+    from obman_train_tpu_torch.ops.kernels import LAUNCHES
+    from obman_train_tpu_torch.train import loop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True  # a user's process
+    original, passes = loop.epoch_pass, []
+
+    def counted(loader, state, epoch, train=True, **kw):
+        before = dict(LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = original(loader, state, epoch, train=train, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = len(loader)
+        launches = {k: LAUNCHES[k] - before.get(k, 0) for k in LAUNCHES}
+        passes.append({
+            "train": train, "steps": steps, "wall_s": wall,
+            "samples_per_s": steps * B_FULL / wall,
+            "data_wait_share": out[1].averages()["data_time"] * steps / wall,
+            "launches_per_step": {k: v / steps for k, v in launches.items() if v}})
+        return out
+
+    results = {}
+    loop.epoch_pass = counted
+    try:
+        for label, argv, gt_verts in runs:
+            passes.clear()
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            traineval.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            exp = argv[argv.index("--exp_id") + 1]
+            for split in ("train", "val"):
+                logged = _logged(exp, split)
+                bad = [k for _, values in logged for k, v in values.items()
+                       if not np.isfinite(v)]
+                if not logged or bad:
+                    fail(f"datasets {label}: {split} log {len(logged)} lines, non-finite {bad}")
+            for p in passes:
+                want = TRAIN_LAUNCHES if p["train"] else EVAL_LAUNCHES
+                want = want if gt_verts else _without_gt_verts(want)
+                if p["launches_per_step"] != want:
+                    fail(f"datasets {label}: launches per "
+                         f"{'train step' if p['train'] else 'val forward'} "
+                         f"{p['launches_per_step']}, want {want}")
+            tr = [p for p in passes if p["train"]]
+            results[label] = {
+                "launches": {k: v for k, v in LAUNCHES.items() if v},
+                "launches_per_train_step": tr[0]["launches_per_step"],
+                "launches_per_val_forward": next(
+                    p["launches_per_step"] for p in passes if not p["train"]),
+                "train_samples_per_s": [p["samples_per_s"] for p in tr],
+                "data_wait_share": [p["data_wait_share"] for p in tr],
+                "final_train_losses": {k: v for k, v in _logged(exp, "train")[-1][1].items()
+                                       if k in ("total_loss", "contact_loss",
+                                                "atlas_objpoints3d", "mano_joints3d")},
+                "passes": list(passes), "seconds": seconds}
+            log(f"datasets {label}: train {json.dumps(results[label]['train_samples_per_s'])} "
+                f"samples/s, data wait {json.dumps(results[label]['data_wait_share'])}; "
+                f"launches {json.dumps(results[label]['launches'])} in {seconds:.1f} s")
+    finally:
+        loop.epoch_pass = original
+    torch.cuda.empty_cache()
+    return results
+
+
+def _fhb_checks(root):
+    """The FHB adapter on the tree: every annotated frame's object (its
+    PLY model under its 6-DoF pose) within the contact filter's 10 mm of a
+    hand joint, and ``points_from_mesh`` samples on the model's surface
+    (inside its bounding box, area weighted over its triangles)."""
+    import numpy as np
+
+    from obman_train_tpu_torch.data import transforms as T
+    from obman_train_tpu_torch.data.fhbhands import FHBHands
+
+    out = {}
+    for split, n in (("train", REAL_TRAIN), ("test", REAL_VAL)):
+        ds = FHBHands(split=split, root=root, use_cache=False)
+        if len(ds) != n:
+            fail(f"FHB {split}: {len(ds)} frames kept by the contact filter, want {n}")
+        worst = 0.0
+        for idx in range(len(ds)):
+            verts, _ = ds.get_obj_verts_faces(idx)
+            joints = ds.get_joints3d(idx)
+            worst = max(worst, float(np.linalg.norm(verts[:, None] - joints[None], axis=2).min()))
+        if worst > CONTACT_THRESH_MM:
+            fail(f"FHB {split}: an object {worst:.2f} mm from every joint")
+        verts, faces = ds.get_obj_verts_faces(0)
+        pts = T.points_from_mesh(faces, verts, 600, np.random.default_rng(0))
+        if (pts < verts.min(0) - 1e-3).any() or (pts > verts.max(0) + 1e-3).any():
+            fail("FHB points_from_mesh left the object's bounding box")
+        out[split] = {"frames": len(ds), "worst_object_joint_mm": worst}
+    log(f"datasets (c) FHB tree: {json.dumps(out)}")
+    return out
+
+
+def phase_datasets(tmp):
+    """Phase 11 (see the module docstring): the real-dataset slice."""
+    from obman_train_tpu_torch.data.fabricate import fabricate_fhb, fabricate_obman
+
+    t0 = time.perf_counter()
+    work = os.path.join(tmp, "datasets")
+    os.makedirs(work)
+    cwd = os.getcwd()
+    os.chdir(work)  # the adapters' annotation caches; FHB's default root
+    try:
+        tree = os.path.join(work, "obman_tree")
+        t_fab = time.perf_counter()
+        for split, n, seed in (("train", REAL_TRAIN, 0), ("val", REAL_VAL, 1)):
+            obman_root, shapenet_root = fabricate_obman(tree, n, split=split, img_size=IMAGE,
+                                                        seed=seed)
+        fhb_root = fabricate_fhb(os.path.join(work, "datasymlinks"), REAL_TRAIN, REAL_VAL,
+                                 FHB_FRAMES_PER_SEQ)
+        result = {"obman_samples": {"train": REAL_TRAIN, "val": REAL_VAL},
+                  "fabricate_s": time.perf_counter() - t_fab, "batch": B_FULL,
+                  "cpu_count": os.cpu_count(),
+                  "tf32": "cuDNN on, matmul off (PyTorch's default)"}
+        result["pipeline"] = _real_pipeline(tree)
+        obman = ["obman", "--obman_root", obman_root, "--shapenet_root", shapenet_root]
+        result["traineval"] = _real_traineval([
+            ("(b) obman", _real_argv(os.path.join(work, "obman_run"), obman[0], obman[1:]),
+             True),
+            ("(b) obman --loader_processes",
+             _real_argv(os.path.join(work, "obman_proc"), obman[0],
+                        obman[1:] + ["--loader_processes"]), True),
+            ("(c) fhbhands", _real_argv(os.path.join(work, "fhb_run"), "fhbhands",
+                                        ["--val_splits", "test"]), False),
+        ])
+        result["fhbhands"] = _fhb_checks(fhb_root)
+    finally:
+        os.chdir(cwd)
+    result["seconds"] = time.perf_counter() - t0
+    log(f"datasets phase: {result['seconds']:.1f} s")
+    return result
+
+
 def _optimizer_matches(state, saved):
     """Whether the optimizer's moments equal the saved ones."""
     import torch
@@ -2536,6 +2774,7 @@ def main() -> None:
         serving = phase_serving(te["exp"], tmp)
         precision = phase_precision(tmp)
         simulation = phase_simulation(te["exp"], tmp)
+        datasets = phase_datasets(tmp)
     # launches: K1-K3 from run (a) of the training entry point, the main path
     # of this slice (with one train step's beside them); the large-cloud
     # rows', from the large-cloud Chamfer path
@@ -2586,6 +2825,11 @@ def main() -> None:
                 **{f"traineval_{k}_run": v["launches"].get(counter, 0)
                    for k, v in precision["traineval"].items() if "launches" in v},
             }
+    # phase 11's paths, each counted from 0
+    for e in (entry, *voxel_entries, *nn_entries):
+        e["launches_real_data_paths"] = {
+            k: v["launches"].get(e.get("counter", e["name"]), 0)
+            for k, v in datasets["traineval"].items()}
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [entry, *voxel_entries, *nn_entries]}), flush=True)
     print(json.dumps({"traineval": {
@@ -2601,6 +2845,7 @@ def main() -> None:
     print(json.dumps({"serving": {"host_libraries": versions, **serving}}), flush=True)
     print(json.dumps({"precision": precision}), flush=True)
     print(json.dumps({"simulation": simulation}), flush=True)
+    print(json.dumps({"datasets": datasets}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

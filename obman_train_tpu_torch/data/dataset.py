@@ -10,8 +10,9 @@ centring, photometric augmentation and the -0.5 normalization, or, with
 augmentation streams are per ``(seed, epoch, idx)`` (:113-122), so the same
 indices give the same draws as the JAX package. The image chain is picked
 as the JAX package picks it (:350-416): uint8 through cv2 when cv2 imports
-and the warp is bilinear, else the float chain; adapters whose objects are
-meshes (``objverts3d``) wait for the real-dataset slice.
+and the warp is bilinear, else the float chain. Adapters whose objects are
+meshes (``objverts3d``, FHB) give their mesh, and the object points are
+sampled on its surface with the sample's own generator (:305-327).
 """
 
 from __future__ import annotations
@@ -277,10 +278,22 @@ class HandDataset:
             [TransQueries.objpoints3d, BaseQueries.objverts3d, TransQueries.objverts3d],
             query,
         ) and (BaseQueries.objverts3d in self.pose_dataset.all_queries):
-            raise NotImplementedError(
-                "object meshes (objverts3d, surface sampling) come with the "
-                "real-dataset slice of the port"
-            )
+            mesh_verts, obj_faces = self.pose_dataset.get_obj_verts_faces(idx)
+            mesh_verts = np.asarray(mesh_verts, np.float32).copy()
+            if flip:
+                mesh_verts[:, 0] = -mesh_verts[:, 0]
+            if BaseQueries.objverts3d in query:
+                sample[BaseQueries.objverts3d] = mesh_verts.copy()
+            if TransQueries.objverts3d in query:
+                rot_mesh = rot_mat.dot(mesh_verts.T).T
+                if self.center_idx is not None:
+                    rot_mesh = rot_mesh - center3d
+                sample[TransQueries.objverts3d] = rot_mesh.astype(np.float32)
+            if BaseQueries.objfaces in query:
+                sample[BaseQueries.objfaces] = np.asarray(obj_faces, np.int32)
+            sampled = T.points_from_mesh(
+                np.asarray(obj_faces), mesh_verts, vertex_nb=self.point_nb, rng=rng)
+            obj_verts3d = rot_mat.dot(sampled.T).T
         elif TransQueries.objpoints3d in query:
             raise ValueError(
                 "Requested TransQueries.objpoints3d for a dataset without "

@@ -3,8 +3,11 @@ mano_train/netscripts/get_datasets.py:11-126): builds an adapter by name,
 intersects the requested queries with what it provides, and wraps it in
 :class:`HandDataset` with the per-dataset jitter magnitudes.
 
-Only the ``synthetic`` adapter is ported; the real datasets (ObMan, FHB,
-StereoHands, Core50) are the real-dataset slice and raise here.
+The names are the JAX package's (:49-100): ``synthetic``, ``obman``,
+``fhbhands``, ``stereohands``, ``core50`` and ``yanademo``, with the same
+``meta`` keys and defaults; the real adapters read their trees from disk
+and raise ``FileNotFoundError`` where a root or a file is missing. Another
+name raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -14,8 +17,12 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from obman_train_tpu_torch.data.core50 import Core50, YanaDemo
 from obman_train_tpu_torch.data.dataset import HandDataset
+from obman_train_tpu_torch.data.fhbhands import FHBHands
+from obman_train_tpu_torch.data.obman import ObMan
 from obman_train_tpu_torch.data.queries import BaseQueries, TransQueries
+from obman_train_tpu_torch.data.stereohands import StereoHands
 from obman_train_tpu_torch.data.synthetic import SyntheticDataset
 
 DEFAULT_MAX_QUERIES = (
@@ -53,11 +60,35 @@ def make_pose_dataset(dat_name: str, split: str, meta: dict, mini_factor=None):
         return SyntheticDataset(
             size=meta.get("size", 64), img_res=meta.get("img_res", 256), split=split
         )
-    raise NotImplementedError(
-        f"dataset {dat_name!r}: only 'synthetic' is ported; the real-dataset "
-        "adapters (obman, fhbhands, stereohands, core50) are the real-dataset "
-        "slice of the port"
-    )
+    if dat_name == "obman":
+        return ObMan(
+            split=split,
+            mode=meta.get("mode", "all"),
+            segment=meta.get("segment", False),
+            mini_factor=mini_factor,
+            override_scale=meta.get("override_scale", False),
+            obman_root=meta.get("obman_root", "datasymlinks/obman"),
+            shapenet_root=meta.get("shapenet_root", "datasymlinks/ShapeNetCore.v2"),
+        )
+    if dat_name == "fhbhands":
+        return FHBHands(
+            split=split,
+            split_type=meta.get("fhbhands_split_type", "actions"),
+            split_choice=meta.get("fhbhands_split_choice", "1"),
+            topology=meta.get("fhbhands_topology", None),
+            root=meta.get("fhb_root", "datasymlinks/fhbhands"),
+        )
+    if dat_name == "stereohands":
+        return StereoHands(
+            split=split,
+            root=meta.get("stereo_root", "datasymlinks/stereohands"),
+            gt_detections=True,
+        )
+    if dat_name == "core50":
+        return Core50(split=split, root=meta.get("core50_root", "datasymlinks/core50"))
+    if dat_name == "yanademo":
+        return YanaDemo(root=meta.get("yana_root", "datasymlinks/yanademo"))
+    raise ValueError(f"Unrecognized dataset name {dat_name}")
 
 
 def get_dataset(

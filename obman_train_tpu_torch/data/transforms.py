@@ -16,17 +16,19 @@ input pipeline: the port's own copy of the JAX package's
   and ``warp_affine_u8`` (``cv2.warpAffine`` with ``WARP_INVERSE_MAP`` on
   the float64 inverse), picked by ``HandDataset`` whenever cv2 imports;
 - the PIL-style Gaussian blur: cv2 ``GaussianBlur((0, 0), sigma)`` when
-  cv2 imports, else scipy.
-
+  cv2 imports, else scipy;
+- ``points_from_mesh``, area-weighted barycentric surface sampling
+  (vertexsample.py:6-29; JAX :411-431), drawing from the caller's
+  generator in the JAX package's order (faces, then u, then v);
 - ``fast_load_obj``, the reference's Wavefront parser with its quirks
-  (JAX :434-510), which the simulation's OBJ dumps round-trip through.
-  Mesh-surface sampling belongs to the real-dataset slice.
+  (JAX :434-510), which the simulation's OBJ dumps round-trip through, and
+  ``load_obj_normalized`` (JAX :511-520), an OBJ in the unit cube.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -385,6 +387,34 @@ def gaussian_blur(img: np.ndarray, radius: float) -> np.ndarray:
         return gaussian_filter(img, sigma=(radius, radius, 0))
 
 
+# ---------------------------------------------------------------------------
+# Mesh surface sampling + OBJ IO
+# ---------------------------------------------------------------------------
+
+
+def points_from_mesh(
+    faces: np.ndarray,
+    vertices: np.ndarray,
+    vertex_nb: int = 600,
+    rng: Optional[np.random.Generator] = None,
+) -> np.ndarray:
+    """Area-weighted barycentric surface sampling (vertexsample.py:6-29)."""
+    rng = rng or np.random.default_rng()
+    tri = vertices[faces]  # (F, 3, 3)
+    cross = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    areas = 0.5 * np.linalg.norm(cross, axis=1)
+    probs = areas / areas.sum()
+    face_ids = rng.choice(len(faces), size=vertex_nb, p=probs)
+    u = rng.random((vertex_nb, 1))
+    v = rng.random((vertex_nb, 1))
+    flip = (u + v) > 1
+    u = np.where(flip, 1 - u, u)
+    v = np.where(flip, 1 - v, v)
+    t = tri[face_ids]
+    pts = t[:, 0] + u * (t[:, 1] - t[:, 0]) + v * (t[:, 2] - t[:, 0])
+    return pts.astype(np.float32)
+
+
 def fast_load_obj(file_obj) -> list:
     """Wavefront parser -> [{'vertices', 'faces'}], matching the reference
     ``loadutils.fast_load_obj`` (loadutils.py:3-123, itself trimesh-derived)
@@ -460,3 +490,15 @@ def fast_load_obj(file_obj) -> list:
             flush()
     flush()
     return meshes
+
+
+def load_obj_normalized(path: str):
+    """Load an OBJ and normalize into the unit cube, as
+    mano_train/objectutils/objectio.py:6-43 does for simulation inputs."""
+    mesh = fast_load_obj(path)[0]
+    v = mesh["vertices"]
+    v = v - v.min(0)
+    v = v / np.abs(v).max()
+    v = 2 * v - 1
+    mesh["vertices"] = v - (v.max(0) + v.min(0)) / 2
+    return mesh["vertices"].astype(np.float32), mesh["faces"].astype(np.int32)

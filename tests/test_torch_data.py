@@ -29,6 +29,12 @@ from obman_train_tpu_torch.data import transforms as T
 from obman_train_tpu_torch.data.queries import BaseQueries, get_trans_queries
 from obman_train_tpu_torch.data.synthetic import SyntheticDataset
 from obman_train_tpu_torch.native import load_imageproc_lib
+from tests.test_torch_adapters import real_trees
+
+try:  # the module as installed, before the fixture below hides it
+    import cv2 as _CV2
+except ImportError:
+    _CV2 = None
 
 META = {"size": 12, "img_res": 64}
 
@@ -137,13 +143,27 @@ def test_set_epoch_replays_the_seeded_stream():
     assert not np.array_equal(epochs[0][0]["images"], epochs[1][0]["images"])
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(monkeypatch, tmp_path):
+    """Process-sliced loading still waits for the DDP slice; the real
+    datasets are ported: ``get_dataset`` loads each name on a fabricated
+    tree (read here with cv2 hidden: PIL decode, the float chain), and an
+    unknown name raises ``ValueError``."""
     ds = factory.get_dataset("synthetic", "train", meta=META)
     with pytest.raises(NotImplementedError, match="DDP slice"):
         loader.BatchLoader(ds, batch_size=4, process_count=2)
-    for name in ("obman", "fhbhands", "stereohands", "core50"):
-        with pytest.raises(NotImplementedError, match="real-dataset"):
-            factory.get_dataset(name, "train")
+    # the fabricators encode with cv2
+    monkeypatch.setitem(sys.modules, "cv2", _CV2)
+    trees = real_trees(tmp_path / "trees")
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    monkeypatch.chdir(tmp_path)  # the adapters' annotation caches
+    for name, meta in trees.items():
+        split = "test" if name == "stereohands" else "train"
+        ds = factory.get_dataset(name, split, meta=meta, inp_res=64)
+        batch = next(iter(loader.BatchLoader(ds, batch_size=2, shuffle=False, num_workers=1)))
+        assert batch["images"].shape == (2, 64, 64, 3), name
+        assert np.isfinite(batch["joints3d"]).all(), name
+    with pytest.raises(ValueError, match="Unrecognized dataset"):
+        factory.get_dataset("coco", "train")
     assert len(factory.get_dataset("synthetic", "train", meta=META, limit_size=5)) == 5
 
 

@@ -99,6 +99,11 @@ def test_walk_covers_every_slice_module():
         "obman_train_tpu_torch.cli.simulate", "obman_train_tpu_torch.cli.process_table",
         "obman_train_tpu_torch.cli.import_torch", "obman_train_tpu_torch.utils.tables",
         "obman_train_tpu_torch.train.debug", "obman_train_tpu_torch.visualize.triage",
+        # the real-dataset adapters
+        "obman_train_tpu_torch.data.cacheutil", "obman_train_tpu_torch.data.plyio",
+        "obman_train_tpu_torch.data.fabricate", "obman_train_tpu_torch.data.obman",
+        "obman_train_tpu_torch.data.fhbhands", "obman_train_tpu_torch.data.stereohands",
+        "obman_train_tpu_torch.data.core50", "obman_train_tpu_torch.data.visualize",
     ):
         assert name in walked, name
 

@@ -7,7 +7,9 @@
   CLI wants a GPU; the precision rungs (``--compute_dtype bfloat16``, each
   ``--geometry_dtype``) and ``--no_atlas_mesh`` train one epoch;
   ``--evaluate --save_results`` runs the grasp simulation over the val
-  samples; ``--mano_assets <dir>`` reads real MANO pkl files;
+  samples; ``--mano_assets <dir>`` reads real MANO pkl files; a
+  fabricated ObMan tree (``--obman_root``, ``--shapenet_root``) trains,
+  resumes and evaluates, and a missing root raises;
 - ``--loader_processes`` trains the run the threaded loader trains, bit
   for bit; ``--no_freeze_batchnorm`` with ``--fc_dropout`` trains (the
   running statistics move) and its dropout masks follow ``--manual_seed``;
@@ -43,6 +45,16 @@ BASE = ["--train_datasets", "synthetic", "--val_datasets", "synthetic",
 @pytest.fixture
 def cpu(monkeypatch):
     monkeypatch.setenv("OBMAN_PLATFORM", "cpu")
+
+@pytest.fixture(autouse=True)
+def drop_checkpoints(tmp_path):
+    """Each test's checkpoints (~0.15 GB each) go once the test is over:
+    pytest keeps the temporary trees of its last runs."""
+    yield
+    for base, _, files in os.walk(tmp_path):
+        for name in files:
+            if name.endswith(".pth.tar"):
+                os.remove(os.path.join(base, name))
 
 
 def _actions(parser):
@@ -162,10 +174,67 @@ def test_real_mano_files(cpu, tmp_path, fix):
                   + argv[argv.index(mano) + 1:] + ["--exp_id", str(tmp_path / "y")])
 
 
-def test_real_datasets_raise(cpu, tmp_path):
-    argv = BASE + ["--exp_id", str(tmp_path / "x"), "--val_datasets", "obman"]
-    with pytest.raises(NotImplementedError, match="real-dataset"):
-        pcli.main(argv)
+def test_real_datasets_raise(cpu, tmp_path, monkeypatch):
+    """Named when the real datasets raised: ``main()`` now trains on a
+    fabricated ObMan tree (``--obman_root``/``--shapenet_root``), two
+    epochs and a resumed third, then evaluates the checkpoint, whose val
+    metrics equal the ones logged for the same weights within 1e-5 (as
+    ``test_main_end_to_end``). One loader worker: the ObMan adapter draws
+    its object points from one generator, which several threads would read
+    in no fixed order; the resumed run and the evaluation each read a fresh
+    adapter's first draws. A missing root raises ``FileNotFoundError``."""
+    from obman_train_tpu_torch.data.fabricate import fabricate_obman
+
+    tree = str(tmp_path / "tree")
+    for split, seed in (("train", 0), ("val", 1)):
+        obman_root, shapenet_root = fabricate_obman(tree, 8, split=split, img_size=128, seed=seed)
+    monkeypatch.chdir(tmp_path)  # the adapters' annotation caches
+    exp = str(tmp_path / "run")
+    argv = ["--train_datasets", "obman", "--val_datasets", "obman", "--obman_root", obman_root,
+            "--shapenet_root", shapenet_root, "--mano_assets", "synthetic", "--image_size", "64",
+            "--train_batch", "4", "--test_batch", "4", "--workers", "1", "--display_freq", "0",
+            "--exp_id", exp] + CONTACT
+    state, metrics = pcli.main(argv + ["--epochs", "2"])
+    assert state.step == 4
+    assert all(np.isfinite(v) for s in metrics["total_loss"].values() for v in s.values())
+    state, _ = pcli.main(argv + ["--epochs", "3", "--resume", exp])
+    assert state.step == 6 and _ckpt(exp)["epoch"] == 3
+    logged_val = _logged(exp, "val")[-1][1]
+    assert "contact_loss" in logged_val and "atlas_objpoints3d" in logged_val
+    _, val = pcli.main(argv + ["--evaluate", "--resume", exp, "--no_simulate"])
+    for k in ("total_loss", "contact_loss", "atlas_objpoints3d", "auc", "epe_mean"):
+        assert abs(val[k] - logged_val[k]) <= 1e-5 * max(1.0, abs(logged_val[k])), k
+    with pytest.raises(FileNotFoundError):
+        pcli.main(argv + ["--epochs", "1", "--obman_root", str(tmp_path / "none")])
+
+
+def test_obman_and_stereohands_train_with_the_palm_root(cpu, tmp_path, monkeypatch):
+    """``--train_datasets obman stereohands`` round-robin, the StereoHands
+    batches with the palm root (``loader_meta``), validated on StereoHands'
+    test split: the PCK image with that protocol's literature curves, and
+    the val dumps carry the palm root. The CLI reads StereoHands at its
+    default root, ``datasymlinks/stereohands`` under the working directory;
+    ``--controlled_exp`` keeps each loader to the frames written to disk."""
+    from obman_train_tpu_torch.data.fabricate import fabricate_obman
+    from tests.test_torch_adapters import write_stereohands
+
+    monkeypatch.chdir(tmp_path)
+    write_stereohands(os.path.join("datasymlinks", "stereohands"), frames=8)
+    obman_root, shapenet_root = fabricate_obman(str(tmp_path / "tree"), 8, img_size=128)
+    exp = str(tmp_path / "run")
+    state, metrics = pcli.main([
+        "--train_datasets", "obman", "stereohands", "--train_splits", "train", "test",
+        "--val_datasets", "stereohands", "--val_splits", "test", "--obman_root", obman_root,
+        "--shapenet_root", shapenet_root, "--controlled_exp", "--controlled_size", "8",
+        "--mano_assets", "synthetic", "--image_size", "64", "--train_batch", "4",
+        "--test_batch", "4", "--workers", "1", "--display_freq", "0", "--save_results",
+        "--exp_id", exp, "--epochs", "1"] + CONTACT)
+    assert state.step == 2  # one obman and one stereohands batch
+    assert all(np.isfinite(v) for s in metrics["total_loss"].values() for v in s.values())
+    assert os.path.exists(os.path.join(exp, "pcks", "val", "epoch_0.png"))
+    with open(os.path.join(exp, "save_results", "val", "epoch_0", "batch_000000.pkl"),
+              "rb") as f:
+        assert pickle.load(f)["root"] == "palm"
 
 
 def test_the_cli_wants_a_gpu_unless_told_cpu(monkeypatch, tmp_path):

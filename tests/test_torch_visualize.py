@@ -40,6 +40,17 @@ from obman_train_tpu_torch.visualize import displaymano, html_mesh, viz2d, viz3d
 torch.set_num_threads(2)
 
 
+@pytest.fixture(autouse=True)
+def drop_checkpoints(tmp_path):
+    """Each test's checkpoints (~0.15 GB each) go once the test is over:
+    pytest keeps the temporary trees of its last runs."""
+    yield
+    for base, _, files in os.walk(tmp_path):
+        for name in files:
+            if name.endswith(".pth.tar"):
+                os.remove(os.path.join(base, name))
+
+
 def _pixels(path):
     return np.asarray(Image.open(path))
 

@@ -17,6 +17,14 @@ only draws the factors):
   batch, as an epoch of the training loop would see it with a device that
   never waits (the process pool's spawn is timed apart).
 
+Then the real-decode stage (the JAX ``bench.py`` ``input_pipeline_real_decode``
+entry's counterpart): a fabricated ObMan tree of 1024 256x256 JPEG frames
+(``data/fabricate.py``) in a temporary directory, ``get_dataset("obman",
+...)`` over it with the host jitter and with ``--device_augment`` (the JAX
+entry's setting), each sample's stage times as above (``fetch`` is the
+JPEG decode and the meta read) and the ``BatchLoader`` on 8 threads at
+batch 64: one warm-up pass, then one timed pass, samples/s.
+
 Needs no GPU. Prints one line a row and one JSON line with
 ``os.cpu_count()`` beside the numbers.
 """
@@ -28,6 +36,7 @@ import contextlib
 import json
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -36,6 +45,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from obman_train_tpu_torch.data import factory, loader  # noqa: E402
 from obman_train_tpu_torch.data import transforms as T  # noqa: E402
+
+# the real-decode stage: the JAX bench entry's batch and a tree of 16 of them
+DECODE_SAMPLES, DECODE_BATCH = 1024, 64
 
 
 @contextlib.contextmanager
@@ -132,6 +144,44 @@ def measure(chain: str, size: int, batch: int, n_batches: int, n_samples: int,
     return out
 
 
+def measure_real_decode(tree: str, n_samples: int, batch: int, device_augment: bool) -> dict:
+    """The real-decode rows over the ObMan tree under ``tree``. The adapter
+    writes its annotation cache relative to the working directory: it is
+    built inside ``tree``."""
+    cwd = os.getcwd()
+    os.chdir(tree)
+    try:
+        ds = factory.get_dataset(
+            "obman", "train", meta={"obman_root": os.path.join(tree, "obman"),
+                                    "shapenet_root": os.path.join(tree, "shapenet")},
+            device_augment=device_augment)
+    finally:
+        os.chdir(cwd)
+    ds[0]  # builds the native warp
+    per_sample, stages = [], []
+    for i in range(1, min(n_samples, len(ds) - 1) + 1):
+        t0 = time.perf_counter()
+        ds[i]
+        per_sample.append((time.perf_counter() - t0) * 1e3)
+        stages.append(_stages(ds, i, T._have_cv2()))
+    bl = loader.BatchLoader(ds, batch_size=batch, num_workers=8, seed=0)
+    for _ in bl:  # warm-up pass: thread pool, page cache
+        pass
+    t0 = time.perf_counter()
+    n = sum(b["images"].shape[0] for b in bl)
+    wall = time.perf_counter() - t0
+    return {
+        "chain": "uint8" if T._have_cv2() else "float",
+        "device_augment": device_augment,
+        "dataset": "obman (fabricated, JPEG on disk)",
+        "samples": len(ds),
+        "per_sample_ms_median": float(np.median(per_sample)),
+        "stage_ms_median": {k: float(np.median([s[k] for s in stages])) for k in stages[0]},
+        "threads": {"workers": min(8, os.cpu_count() or 1), "batch": batch, "samples": n,
+                    "samples_per_s": n / wall, "batch_s": wall / (n // batch)},
+    }
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--size", type=int, default=256)
@@ -142,13 +192,23 @@ def main() -> None:
     out = {"cpu_count": os.cpu_count(), "size": args.size, "batch": args.batch, "runs": [
         measure(chain, args.size, args.batch, args.batches, args.samples, da)
         for chain in ("uint8", "float") for da in (False, True)]}
-    for r in out["runs"]:
+    from obman_train_tpu_torch.data.fabricate import fabricate_obman
+
+    with tempfile.TemporaryDirectory() as tree:
+        t0 = time.perf_counter()
+        fabricate_obman(tree, DECODE_SAMPLES, img_size=256)
+        out["real_decode_fabricate_s"] = time.perf_counter() - t0
+        out["real_decode"] = [
+            measure_real_decode(tree, args.samples, DECODE_BATCH, da)
+            for da in (False, True)]
+    for r in out["runs"] + out["real_decode"]:
         rows = [f"threads {r['threads']['samples_per_s']:.1f} samples/s on "
                 f"{r['threads']['workers']}"]
         if "processes" in r:
             rows.append(f"processes {r['processes']['samples_per_s']:.1f} samples/s on "
                         f"{r['processes']['workers']} (spawn {r['processes']['spawn_s']:.1f} s)")
-        print(f"{r['chain']} chain, device_augment={r['device_augment']}: "
+        print(f"{r.get('dataset', 'synthetic')}, {r['chain']} chain, "
+              f"device_augment={r['device_augment']}: "
               f"{r['per_sample_ms_median']:.2f} ms a sample in one thread (stages "
               f"{json.dumps(r['stage_ms_median'])}); loader " + "; ".join(rows), flush=True)
     print(json.dumps(out), flush=True)
