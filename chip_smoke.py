@@ -131,13 +131,33 @@ each fatal on failure:
    train step and per val forward must be the synthetic loop's (K1 1,
    argmin 6, min 1 a train step), less FHB's one min-only sweep (FHB has no
    GT hand vertices, so no GT contact distances); the loop's samples/s
-   (epoch wall clock) and data-wait share, finite losses.
+   (epoch wall clock) and data-wait share, finite losses;
+12. data-parallel training (contact config at full width, B=256), each
+   rank a child process with torchrun's environment and a wall-clock
+   limit: (a) the contact train step from phase 6's seeded weights, 3
+   steps plain twice (a control: the step is deterministic here, with
+   ``torch.use_deterministic_algorithms``), then ``parallel.init_distributed``
+   as rank 0 of an NCCL world of one and 3 steps distributed: frozen BN
+   (PyTorch's default TF32) bit for bit the plain step's, unfrozen BN with
+   dropout 0.3 (TF32 off) within 1e-5 of each tensor's update, launches per
+   distributed step, samples/s of the frozen step plain and distributed in
+   turns beside phase 6's; (b) ``python -m obman_train_tpu_torch.cli.traineval
+   --distributed`` as two ranks sharing the card over gloo (``LOCAL_RANK``
+   0/1 both on ``cuda:0``), ``--train_batch 256 --test_batch 256
+   --synthetic_size 512``, 1 epoch, unfrozen BN, dropout 0.3, the contact
+   losses, ``--save_results --no_simulate``, sgd (as
+   ``tests/test_torch_distributed.py``), TF32 off, then the same argv in one
+   process: AUC bit for bit, the other metrics rel 2e-3 / abs 1e-4, the
+   checkpoint's parameters rtol 5e-3 / atol 5e-4, the rank pickles' GT
+   joints exactly, rank 0 alone writing the logs and the checkpoint,
+   launches per rank per train step and val forward; both runs' samples/s
+   and the gradient all-reduce's milliseconds a step.
 
 Output: progress lines, then one JSON line ``{"kernels": [...]}``, one
 JSON line ``{"traineval": {...}}``, one JSON line ``{"serving": {...}}``,
 one JSON line ``{"precision": {...}}``, one JSON line
-``{"simulation": {...}}``, one JSON line ``{"datasets": {...}}``, the
-``nvidia-smi`` line, and as the last line
+``{"simulation": {...}}``, one JSON line ``{"datasets": {...}}``, one JSON
+line ``{"distributed": {...}}``, the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 With no GPU, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -2736,6 +2756,437 @@ def phase_datasets(tmp):
     return result
 
 
+# Phase 12, data-parallel training (JAX parallel/mesh.py, the train step
+# over a batch-sharded mesh, data/loader.py's process slices,
+# train/metrics.py merge_distributed, cli/traineval.py --distributed). The
+# card is one H100: (a) is an NCCL world of one in a child process; (b) is
+# two ranks sharing the card over gloo (NCCL refuses two ranks on one
+# device), launched as torchrun would, each a child process.
+DIST_STEPS = 3
+DIST_TIMEOUT_S = 300  # a child's wall-clock limit: a hung collective fails the phase
+# (b)'s flags besides the contact config: unfrozen BN and dropout, one epoch,
+# the result pickles; sgd at lr 1e-8 as tests/test_torch_distributed.py (i):
+# adam's first updates are +-lr wherever rounding decides a gradient's sign,
+# which moved the val contact terms of ONE process by more than the
+# comparison's tolerance between two thread counts on the CPU
+DIST_FLAGS = ["--epochs", "1", "--no_freeze_batchnorm", "--fc_dropout", "0.3",
+              "--save_results", "--no_simulate", "--manual_seed", "3",
+              "--optimizer", "sgd", "--lr", "1e-8"]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _torchrun_env(rank, world, port, local_world):
+    """A child's environment: torchrun's variables for ``rank`` (none for
+    None), deterministic cuBLAS workspaces, the repo on the path."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK",
+                        "LOCAL_WORLD_SIZE")}
+    env["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    if rank is not None:
+        env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                   WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                   LOCAL_WORLD_SIZE=str(local_world))
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def _run_children(children, label):
+    """Start every ``(argv, env, log)`` child at once and wait for all of
+    them; a child that exits non-zero or outlives ``DIST_TIMEOUT_S`` fails
+    the phase, and every child is stopped before this returns."""
+    procs = []
+    try:
+        for argv, env, log_path in children:
+            with open(log_path, "w") as log_file:
+                procs.append(subprocess.Popen([sys.executable, "-u", *argv], env=env,
+                                              cwd=HERE, stdout=log_file,
+                                              stderr=subprocess.STDOUT))
+        deadline = time.perf_counter() + DIST_TIMEOUT_S
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                fail(f"{label}: a child outlived {DIST_TIMEOUT_S} s (a hung collective?)")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for (_, _, log_path), p in zip(children, procs):
+        with open(log_path) as f:
+            out = f.read()
+        if p.returncode != 0:
+            fail(f"{label}: a child exited {p.returncode}:\n{out[-3000:]}")
+        outs.append(out)
+    return outs
+
+
+def _dist_child_world_of_one(out_path):
+    """(a), in its own process: the contact train step at B=256 from phase
+    6's seeded weights, DIST_STEPS steps each, non-distributed twice (the
+    control: the step is deterministic here) with steps built before the
+    process joins a group, then ``init_distributed`` as rank 0 of a world of
+    one (NCCL) and the same steps distributed; frozen BN at PyTorch's
+    default TF32, then unfrozen BN with dropout 0.3 with TF32 off; the
+    launches per distributed step; samples/s of the frozen step, plain and
+    distributed in turns."""
+    import torch
+
+    from obman_train_tpu_torch import parallel, train
+    from obman_train_tpu_torch.config import TrainConfig
+    from obman_train_tpu_torch.models import BatchSpec
+    from obman_train_tpu_torch.ops.kernels import LAUNCHES
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dev = torch.device("cuda", 0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_gt(B_FULL, IMAGE, 1).items()}
+    cases = (("frozen", False, {}, True), ("unfrozen_dropout", True, {"fc_dropout": 0.3}, False))
+
+    def run(net, init, train_bn, cudnn_tf32):
+        """DIST_STEPS steps from ``init`` with a step built now: the state
+        after them (weights, statistics, moments), the last losses, the
+        launches, and the state and step for timing."""
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+        net.load_state_dict(init)
+        tcfg = TrainConfig()
+        opt = train.make_optimizer(tcfg, net)
+        state = train.create_train_state(net, opt, tcfg)
+        step = train.make_train_step(net, opt, BatchSpec(), train_bn=train_bn, device=dev)
+        LAUNCHES.clear()
+        for _ in range(DIST_STEPS):
+            state, losses = step(state, batch)
+        torch.cuda.synchronize()
+        snap = {k: v.clone() for k, v in net.state_dict().items()}
+        for i, st in opt.state_dict()["state"].items():
+            for k, v in st.items():
+                if torch.is_tensor(v):
+                    snap[f"optimizer/{i}/{k}"] = v.clone()
+        return snap, {k: float(v) for k, v in losses.items()}, dict(LAUNCHES), (state, step)
+
+    nets, plain = {}, {}
+    for label, train_bn, model_kw, cudnn_tf32 in cases:
+        net = _build_net(contact=True, seed=0, device=dev, **model_kw)
+        init = {k: v.clone() for k, v in net.state_dict().items()}
+        nets[label] = (net, init)
+        plain[label] = (run(net, init, train_bn, cudnn_tf32), run(net, init, train_bn, cudnn_tf32))
+    info = parallel.init_distributed(timeout_s=DIST_TIMEOUT_S)
+    if info.backend != "nccl" or info.world != 1 or info.device != dev:
+        fail(f"distributed (a): backend {info.backend}, world {info.world}, {info.device}")
+    result = {"backend": info.backend, "device": str(dev), "steps": DIST_STEPS}
+    for label, train_bn, _, cudnn_tf32 in cases:
+        net, init = nets[label]
+        (ref, ref_losses, _, timed_plain), (control, _, _, _) = plain[label]
+        got, losses, launches, timed_dist = run(net, init, train_bn, cudnn_tf32)
+        diff = {k: float((got[k].double() - v.double()).abs().max())
+                for k, v in ref.items() if v.is_floating_point()}
+        control_equal = all(torch.equal(control[k], v) for k, v in ref.items())
+        equal = all(torch.equal(got[k], v) for k, v in ref.items())
+        scale = {k: float((v.double() - init[k].double()).abs().max())
+                 for k, v in ref.items() if k in init and v.is_floating_point()}
+        worst = max(((diff[k] / scale[k] if scale[k] else diff[k]), k) for k in scale)
+        per_step = {k: v / DIST_STEPS for k, v in launches.items() if v}
+        entry = {"bitwise_equal": equal, "control_bitwise_equal": control_equal,
+                 "max_abs_diff": max(diff.values()), "worst_diff_over_update": list(worst),
+                 "losses_plain": ref_losses, "losses_distributed": losses,
+                 "launches_per_step": per_step,
+                 "tf32": "cuDNN on (PyTorch's default)" if cudnn_tf32 else "off"}
+        log(f"distributed (a) {label}: state after {DIST_STEPS} steps bitwise equal "
+            f"{equal} (control {control_equal}), max |diff| {entry['max_abs_diff']:.3e}, "
+            f"worst diff / update {worst[0]:.3e} ({worst[1]}); launches per step {per_step}")
+        if per_step != TRAIN_LAUNCHES:
+            fail(f"distributed (a) {label}: launches per step {per_step}, want {TRAIN_LAUNCHES}")
+        if not control_equal:
+            fail(f"distributed (a) {label}: two non-distributed runs differ: the step is not "
+                 "deterministic here, so no bitwise check can hold")
+        if label == "frozen" and not equal:
+            fail(f"distributed (a) frozen: a world of one differs from the plain step: {worst}")
+        if label != "frozen" and worst[0] > 1e-5:
+            fail(f"distributed (a) {label}: worst diff / update {worst} (limit 1e-5)")
+        if label == "frozen":
+            rates = {"plain": [], "distributed": []}
+            for kind in ("plain", "distributed", "distributed", "plain"):
+                state, step = timed_dist if kind == "distributed" else timed_plain
+                step(state, batch)
+                rates[kind] += _train_windows(state, step, batch)
+            entry["samples_per_s"] = rates
+            entry["samples_per_s_tf32"] = "cuDNN on (PyTorch's default)"
+            log(f"distributed (a) frozen samples/s at B={B_FULL}, turns P D D P: "
+                f"{json.dumps(rates)}")
+        result[label] = entry
+    parallel.destroy_distributed()
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+
+
+def _dist_child_traineval(record_path, argv):
+    """A ``python -m obman_train_tpu_torch.cli.traineval`` process (run by
+    ``runpy``, as ``-m`` runs it) with TF32 off and deterministic
+    algorithms, recording what it writes,
+    the kernel launches and samples/s of each epoch pass, and the host
+    clock of each train step's gradient all-reduce (synchronized on both
+    sides)."""
+    import builtins
+    import runpy
+
+    import torch
+
+    from obman_train_tpu_torch.ops.kernels import LAUNCHES
+    from obman_train_tpu_torch.train import loop, steps
+
+    set_tf32(False)
+    # deterministic algorithms: the one process and the ranks then differ
+    # only where a kernel's algorithm follows the batch size (B=256 vs 128)
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    passes, reduce_ms, written, floats = [], [], set(), []
+    original_pass, original_mean = loop.epoch_pass, steps._RankMean.__call__
+    real_open, real_save = builtins.open, torch.save
+
+    def counted(loader, state, epoch, train=True, **kw):
+        before = dict(LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = original_pass(loader, state, epoch, train=train, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = len(loader)
+        passes.append({"train": train, "steps": n, "wall_s": wall,
+                       "samples_per_s": n * B_FULL / wall,
+                       "launches_per_step": {k: (LAUNCHES[k] - before.get(k, 0)) / n
+                                             for k in LAUNCHES
+                                             if LAUNCHES[k] - before.get(k, 0)}})
+        return out
+
+    def timed(self, params, losses):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = original_mean(self, params, losses)
+        torch.cuda.synchronize()
+        if params:
+            reduce_ms.append((time.perf_counter() - t0) * 1e3)
+            floats.append(sum(p.numel() for p in params))
+        return out
+
+    def note(f):
+        if isinstance(f, (str, bytes, os.PathLike)):
+            written.add(os.path.abspath(os.fsdecode(f)))
+
+    def recording_open(file, mode="r", *a, **k):
+        if any(c in mode for c in "wax+"):
+            note(file)
+        return real_open(file, mode, *a, **k)
+
+    def recording_save(obj, f, *a, **k):
+        note(f)
+        return real_save(obj, f, *a, **k)
+
+    # each batch's loss values as the meters receive them
+    step_losses = []
+    original_add = loop.AverageMeters.add_loss_value
+
+    def recorded(self, name, val, n=1):
+        step_losses.append([name, float(val)])
+        return original_add(self, name, val, n)
+
+    loop.AverageMeters.add_loss_value = recorded
+    loop.epoch_pass, steps._RankMean.__call__ = counted, timed
+    builtins.open, torch.save = recording_open, recording_save
+    sys.argv = ["traineval"] + list(argv)
+    try:
+        runpy.run_module("obman_train_tpu_torch.cli.traineval", run_name="__main__",
+                         alter_sys=True)
+    finally:
+        builtins.open, torch.save = real_open, real_save
+    with open(record_path, "w") as f:
+        json.dump({"passes": passes, "allreduce_ms": reduce_ms, "grad_floats": floats,
+                   "written": sorted(written), "step_losses": step_losses}, f)
+
+
+def _pickled_auc(res_dir, names, suffixes):
+    """The val AUC of the loop's evaluator recomputed from the result
+    pickles: each batch's rows in global order (the ranks' in rank order)."""
+    import pickle
+
+    import numpy as np
+
+    from obman_train_tpu_torch.train.metrics import EvalUtil
+
+    ev, preds = EvalUtil(), []
+    for name in names:
+        parts = []
+        for suffix in suffixes:
+            with open(os.path.join(res_dir, name.replace(".pkl", f"{suffix}.pkl")), "rb") as f:
+                parts.append(pickle.load(f))
+        gt = np.concatenate([p["batch"]["joints3d"] for p in parts])
+        pred = np.concatenate([p["results"]["joints"] for p in parts])
+        ev.feed(gt, pred)
+        preds.append((gt, pred))
+    return ev.get_measures(0, 50, 20)[3], preds
+
+
+def _dist_compare(sp, mp):
+    """tests/test_distributed.py's comparison of a 2-rank run with one
+    process: AUC bit for bit (the val AUC also equal, for each run, to the
+    evaluator's on that run's own pickled predictions: the pool merge is
+    exact), the other metrics rel 2e-3 / abs 1e-4, the checkpoint's
+    parameters rtol 5e-3 / atol 5e-4, the rank pickles' GT joints exactly
+    and their predictions rtol 5e-3 / atol 5e-3. The two runs' kernels see
+    other batch sizes (256 against 128 a rank; cuDNN and cuBLAS choose
+    algorithms by shape), so their forwards agree to rounding, not bit for
+    bit: the PCK counts that their predictions put on the two sides of a
+    threshold are counted. Returns the measures and the violations."""
+    import numpy as np
+    import torch
+
+    bad = []
+    with open(os.path.join(sp, "metrics.json")) as f:
+        m_sp = json.load(f)
+    with open(os.path.join(mp, "metrics.json")) as f:
+        m_mp = json.load(f)
+    if set(m_sp) != set(m_mp) or "auc" not in m_sp:
+        fail(f"distributed (b): metrics {sorted(m_sp)} vs {sorted(m_mp)}")
+    out = {"auc": {s: [m_sp["auc"][s]["1"], m_mp["auc"][s]["1"]] for s in m_sp["auc"]}}
+    bad += [f"{s} AUC {a} (one process) != {b} (2 ranks)"
+            for s, (a, b) in out["auc"].items() if a != b]
+    rel = {}
+    for key, splits in m_sp.items():
+        if key in ("batch_time", "data_time", "auc"):
+            continue
+        for split, series in splits.items():
+            v, w = series["1"], m_mp[key][split]["1"]
+            rel[f"{key}/{split}"] = abs(v - w) / max(abs(v), 1e-12)
+            if abs(v - w) > 1e-4 + 2e-3 * abs(w):
+                bad.append(f"{key}/{split} {v} (one process) vs {w} (2 ranks)")
+    out["metrics_rel_diff"] = rel
+    ck = [torch.load(os.path.join(d, "checkpoint.pth.tar"), map_location="cpu",
+                     weights_only=True)["state_dict"] for d in (sp, mp)]
+    worst, n_diff = (0.0, None), 0
+    for k, v in ck[0].items():
+        if v.is_floating_point():
+            n_diff += int((ck[1][k] != v).sum())
+            excess = float(((ck[1][k].double() - v.double()).abs()
+                            / (5e-4 + 5e-3 * v.double().abs())).max())
+            worst = max(worst, (excess, k))
+    if worst[0] > 1:
+        bad.append(f"checkpoint parameter {worst[1]} off by {worst[0]} of rtol 5e-3 / atol 5e-4")
+    out["params_worst_of_tolerance"] = list(worst)
+    out["state_entries_not_bitwise"] = n_diff
+    res_sp = os.path.join(sp, "save_results", "val", "epoch_0")
+    res_mp = os.path.join(mp, "save_results", "val", "epoch_0")
+    files = sorted(os.listdir(res_sp))
+    if len(os.listdir(res_mp)) != 2 * len(files):
+        fail(f"distributed (b): {len(os.listdir(res_mp))} rank pickles for {len(files)} batches")
+    auc_sp, preds_sp = _pickled_auc(res_sp, files, [""])
+    auc_mp, preds_mp = _pickled_auc(res_mp, files, ["_rank0", "_rank1"])
+    out["val_auc_from_pickles"] = [auc_sp, auc_mp]
+    if [auc_sp, auc_mp] != out["auc"]["val"]:
+        bad.append(f"val AUC {out['auc']['val']} logged, {[auc_sp, auc_mp]} from the pickles")
+    joints_err, flips = 0.0, 0
+    thresholds = np.linspace(0, 50, 20)
+    for (gt_sp, p_sp), (gt_mp, p_mp) in zip(preds_sp, preds_mp):
+        if not np.array_equal(gt_sp, gt_mp):
+            bad.append("the rank pickles' GT joints differ from the one process's")
+        joints_err = max(joints_err, float(np.abs(p_mp - p_sp).max()))
+        if not np.allclose(p_mp, p_sp, rtol=5e-3, atol=5e-3):
+            bad.append("the rank pickles' predicted joints differ from the one process's")
+        errs = [np.linalg.norm(np.asarray(gt_sp, np.float64) - np.asarray(q, np.float64),
+                               axis=-1)[..., None] <= thresholds for q in (p_sp, p_mp)]
+        flips += int((errs[0] != errs[1]).sum())
+    out["val_batches"] = len(files)
+    out["pred_joints_max_abs_mm"] = joints_err
+    out["val_pck_counts"] = int(sum(g.shape[0] for g, _ in preds_sp) * 21 * len(thresholds))
+    out["val_pck_counts_differing"] = flips
+    return out, bad
+
+
+def phase_distributed(tmp, phase6_rates):
+    """Phase 12 (see the module docstring)."""
+    t0 = time.perf_counter()
+    work = os.path.join(tmp, "distributed")
+    os.makedirs(work)
+    me = os.path.join(HERE, "chip_smoke.py")
+    result = {"card": "one", "tf32": {"a_frozen": "cuDNN on (PyTorch's default)",
+                                      "a_unfrozen": "off", "b": "off"}}
+    # (a) an NCCL world of one
+    t_a = time.perf_counter()
+    out_a = os.path.join(work, "world_of_one.json")
+    _run_children([([me, "--dist-world-of-one", out_a],
+                    _torchrun_env(0, 1, _free_port(), 1),
+                    os.path.join(work, "world_of_one.log"))], "distributed (a)")
+    with open(out_a) as f:
+        result["a_world_of_one"] = json.load(f)
+    result["a_world_of_one"]["seconds"] = time.perf_counter() - t_a
+    log(f"distributed (a) NCCL world of one: frozen samples/s "
+        f"{json.dumps(result['a_world_of_one']['frozen']['samples_per_s'])} beside phase 6's "
+        f"non-distributed step {json.dumps(phase6_rates)} (same call)")
+
+    # (b) two gloo ranks sharing the card, then the same argv in one process
+    t_b = time.perf_counter()
+    sp, mp = os.path.join(work, "single"), os.path.join(work, "ranks")
+    base = _traineval_argv(sp) + DIST_FLAGS
+    port = _free_port()
+    outs = _run_children(
+        [([me, "--dist-traineval", os.path.join(work, f"rank{r}.json"),
+           *_traineval_argv(mp), *DIST_FLAGS, "--distributed"],
+          _torchrun_env(r, 2, port, 2), os.path.join(work, f"rank{r}.log"))
+         for r in range(2)], "distributed (b) 2 ranks")
+    for r, out in enumerate(outs):
+        if f"rank {r} of 2, local rank {r}, backend gloo" not in out:
+            fail(f"distributed (b): rank {r} did not report the gloo backend:\n{out[-2000:]}")
+    _run_children([([me, "--dist-traineval", os.path.join(work, "single.json"), *base],
+                    _torchrun_env(None, 1, 0, 1), os.path.join(work, "single.log"))],
+                  "distributed (b) one process")
+    records = {}
+    for name in ("rank0", "rank1", "single"):
+        with open(os.path.join(work, f"{name}.json")) as f:
+            records[name] = json.load(f)
+    b, bad = _dist_compare(sp, mp)
+    for name in ("rank0", "rank1"):
+        rec = records[name]
+        train_passes = [p for p in rec["passes"] if p["train"]]
+        val_passes = [p for p in rec["passes"] if not p["train"]]
+        if (not train_passes or train_passes[0]["launches_per_step"] != TRAIN_LAUNCHES
+                or val_passes[0]["launches_per_step"] != EVAL_LAUNCHES):
+            fail(f"distributed (b) {name}: launches per train step / val forward "
+                 f"{[p['launches_per_step'] for p in rec['passes']]}, want {TRAIN_LAUNCHES} "
+                 f"/ {EVAL_LAUNCHES}")
+        b[f"{name}_launches_per_train_step"] = train_passes[0]["launches_per_step"]
+        b[f"{name}_launches_per_val_forward"] = val_passes[0]["launches_per_step"]
+    rel = {name: [os.path.relpath(p, mp) for p in records[name]["written"]
+                  if p.startswith(mp + os.sep)] for name in ("rank0", "rank1")}
+    if not rel["rank1"] or not all(p.endswith("_rank1.pkl") for p in rel["rank1"]):
+        fail(f"distributed (b): rank 1 wrote {rel['rank1']}")
+    need = {"metrics.json", "opt.json", "checkpoint.pth.tar.tmp", "logs/train.txt",
+            "logs/val.txt"}
+    if not need <= set(rel["rank0"]):
+        fail(f"distributed (b): rank 0 wrote {sorted(rel['rank0'])}, missing "
+             f"{sorted(need - set(rel['rank0']))}")
+    b["files_written"] = {k: len(v) for k, v in rel.items()}
+    reduce_ms = records["rank0"]["allreduce_ms"] + records["rank1"]["allreduce_ms"]
+    b["allreduce_ms_per_step"] = reduce_ms
+    b["allreduce_floats"] = records["rank0"]["grad_floats"][:1]
+    b["samples_per_s"] = {
+        name: [p["samples_per_s"] for p in records[name]["passes"] if p["train"]]
+        for name in ("rank0", "rank1", "single")}
+    b["seconds"] = time.perf_counter() - t_b
+    result["b_two_ranks_gloo"] = b
+    log(f"distributed (b) 2 gloo ranks on one card vs one process: {json.dumps(b)}")
+    if bad:
+        fail("distributed (b) against one process: " + "; ".join(bad))
+    result["seconds"] = time.perf_counter() - t0
+    log(f"distributed phase: {result['seconds']:.1f} s")
+    return result
+
+
 def _optimizer_matches(state, saved):
     """Whether the optimizer's moments equal the saved ones."""
     import torch
@@ -2775,6 +3226,7 @@ def main() -> None:
         precision = phase_precision(tmp)
         simulation = phase_simulation(te["exp"], tmp)
         datasets = phase_datasets(tmp)
+        distributed = phase_distributed(tmp, train["samples_per_s"])
     # launches: K1-K3 from run (a) of the training entry point, the main path
     # of this slice (with one train step's beside them); the large-cloud
     # rows', from the large-cloud Chamfer path
@@ -2830,6 +3282,20 @@ def main() -> None:
         e["launches_real_data_paths"] = {
             k: v["launches"].get(e.get("counter", e["name"]), 0)
             for k, v in datasets["traineval"].items()}
+    # phase 12's paths: launches per distributed step, (a) the world of one,
+    # (b) each gloo rank's train step and val forward
+    dist_a = distributed["a_world_of_one"]
+    dist_b = distributed["b_two_ranks_gloo"]
+    for e in (entry, *voxel_entries, *nn_entries):
+        c = e.get("counter", e["name"])
+        e["launches_distributed_paths"] = {
+            "world_of_one_frozen_step": dist_a["frozen"]["launches_per_step"].get(c, 0),
+            "world_of_one_unfrozen_step":
+                dist_a["unfrozen_dropout"]["launches_per_step"].get(c, 0),
+            **{f"{r}_train_step": dist_b[f"{r}_launches_per_train_step"].get(c, 0)
+               for r in ("rank0", "rank1")},
+            **{f"{r}_val_forward": dist_b[f"{r}_launches_per_val_forward"].get(c, 0)
+               for r in ("rank0", "rank1")}}
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [entry, *voxel_entries, *nn_entries]}), flush=True)
     print(json.dumps({"traineval": {
@@ -2846,6 +3312,7 @@ def main() -> None:
     print(json.dumps({"precision": precision}), flush=True)
     print(json.dumps({"simulation": simulation}), flush=True)
     print(json.dumps({"datasets": datasets}), flush=True)
+    print(json.dumps({"distributed": distributed}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
@@ -2853,4 +3320,9 @@ def main() -> None:
 
 if __name__ == "__main__":
     sys.path.insert(0, HERE)
-    main()
+    if sys.argv[1:2] == ["--dist-world-of-one"]:
+        _dist_child_world_of_one(sys.argv[2])
+    elif sys.argv[1:2] == ["--dist-traineval"]:
+        _dist_child_traineval(sys.argv[2], sys.argv[3:])
+    else:
+        main()

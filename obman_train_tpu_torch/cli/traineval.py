@@ -7,8 +7,14 @@ Run e.g. (on the GPU; ``OBMAN_PLATFORM=cpu`` for the CPU):
       --val_datasets synthetic --mano_assets synthetic --epochs 2 \
       --train_batch 8 --atlas_predict_trans
 
-Flags whose paths are not ported yet raise ``NotImplementedError`` naming
-the slice they wait for (:func:`check_ported`).
+Distributed (one process per card, NCCL; gloo where ranks share a card or
+run on the CPU), with torchrun's environment:
+
+  python -m torch.distributed.run --nproc_per_node N \
+      -m obman_train_tpu_torch.cli.traineval --distributed ...
+
+``--train_batch`` and ``--test_batch`` stay the global batches; each rank
+loads its slice (see ``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -171,8 +177,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="resume from <exp_id>/checkpoint when it exists "
                         "(preemption-safe restarts)")
     e.add_argument("--distributed", action="store_true",
-                   help="multi-process training (not ported: the DDP "
-                        "slice)")
+                   help="data-parallel training, one process per card, "
+                        "launched by torchrun (python -m "
+                        "torch.distributed.run); batches stay global")
     return p
 
 
@@ -285,18 +292,6 @@ def args_to_config(args):
     )
 
 
-def check_ported(args) -> None:
-    """Raise ``NotImplementedError`` for a flag whose path is a later slice
-    of the port (ROADMAP.md, queue 1)."""
-    unported = [
-        (args.distributed, "--distributed: multi-process training is the DDP "
-                           "slice (ROADMAP queue 1, item 8)"),
-    ]
-    for hit, msg in unported:
-        if hit:
-            raise NotImplementedError(f"not ported yet: {msg}")
-
-
 def load_mano_pair(mano_assets_dir: str, fix_left_shapedirs: bool = False):
     """(right, left) MANO assets: the synthetic model for ``"synthetic"``,
     else ``MANO_{RIGHT,LEFT}.{npz,pkl}`` from the directory (the JAX CLI's
@@ -326,7 +321,6 @@ def _write_opt_txt(exp_id: str, argv) -> None:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    check_ported(args)
     cfg = args_to_config(args)
 
     import torch
@@ -335,6 +329,7 @@ def main(argv=None):
     from obman_train_tpu_torch.data.factory import get_dataset
     from obman_train_tpu_torch.data.loader import BatchLoader, ConcatLoader, loader_meta
     from obman_train_tpu_torch.models import build_handnet
+    from obman_train_tpu_torch.parallel import barrier, destroy_distributed, init_distributed
     from obman_train_tpu_torch.train import create_train_state, make_optimizer
     from obman_train_tpu_torch.train.checkpoint import (
         CHECKPOINT_NAME,
@@ -347,13 +342,19 @@ def main(argv=None):
     from obman_train_tpu_torch.weights import init_weights
 
     device = apply_platform_override()
+    rank, world = 0, 1
+    if args.distributed:
+        # the rank's card (cuda:LOCAL_RANK % cards) and the backend
+        info = init_distributed(device="cpu" if device.type == "cpu" else None)
+        device, rank, world = info.device, info.rank, info.world
     if args.compilation_cache:
         print("--compilation_cache: eager PyTorch compiles nothing, so there is "
               "nothing to cache")
 
-    os.makedirs(cfg.exp_id, exist_ok=True)
-    _write_opt_txt(cfg.exp_id, sys.argv[:1] + list(argv) if argv is not None else sys.argv)
-    cfg.to_json(os.path.join(cfg.exp_id, "opt.json"))
+    if rank == 0:  # rank 0 writes the experiment's files
+        os.makedirs(cfg.exp_id, exist_ok=True)
+        _write_opt_txt(cfg.exp_id, sys.argv[:1] + list(argv) if argv is not None else sys.argv)
+        cfg.to_json(os.path.join(cfg.exp_id, "opt.json"))
     name = f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""
     print(f"Device: {device}{name}")
 
@@ -389,6 +390,7 @@ def main(argv=None):
                 ds, batch_size=batch_size, shuffle=train_it,
                 num_workers=cfg.data.workers, seed=cfg.train.manual_seed,
                 use_processes=args.loader_processes,
+                process_rank=rank, process_count=world,
                 # an explicit --workers is honored; the default is clamped
                 # to the host's cores
                 clamp_threads=args.workers is None,
@@ -437,11 +439,17 @@ def main(argv=None):
     if cfg.evaluate:
         cfg = cfg.replace(train=cfg.train.replace(epochs=start_epoch + 1))
 
-    state, metrics = fit(cfg, state, train_loader, val_loader, start_epoch=start_epoch,
-                         profile_dir=args.profile_dir)
+    try:
+        state, metrics = fit(cfg, state, train_loader, val_loader, start_epoch=start_epoch,
+                             profile_dir=args.profile_dir)
+        # every rank's result pickles are written before rank 0 reads them
+        barrier()
+    finally:
+        if args.distributed:
+            destroy_distributed()
     if cfg.evaluate:
         print("Eval metrics:", {k: round(float(v), 4) for k, v in metrics.items()})
-        if cfg.save_results and not args.no_simulate:
+        if cfg.save_results and not args.no_simulate and rank == 0:
             from obman_train_tpu_torch.simulation import full_simul
 
             sim_dir = os.path.join(cfg.exp_id, "save_results", "val", f"epoch_{start_epoch}")

@@ -17,7 +17,12 @@ model reads ("images" NHWC, "sides" int32 0=right/1=left) and
 whole batches instead (the reference's DataLoader worker model, JAX
 :100-215): each child holds its own copy of the dataset, never sees the
 GPU, and yields the threaded loader's batches bit for bit.
-Process-sliced (multi-process) loading comes with the DDP slice.
+
+Process-sliced loading (``process_rank``/``process_count``, JAX :136-180,
+:270-283) feeds a distributed run: every rank walks the same shuffled
+global order and loads only its contiguous ``batch_size / process_count``
+rows of each global batch, so the rank-ordered concatenation of the ranks'
+batches is the one-process stream; ``batch_size`` stays the global batch.
 """
 
 from __future__ import annotations
@@ -145,7 +150,9 @@ class BatchLoader:
     Epoch ``e`` (the ``e``-th iteration, or the one :meth:`set_epoch`
     names) shuffles with ``seed + e`` and reseeds the dataset's
     augmentation stream with ``e + 1``, as the JAX package's loader does on
-    its ``e``-th iteration."""
+    its ``e``-th iteration. With ``process_count > 1`` it yields rank
+    ``process_rank``'s slice of each global batch of ``batch_size`` rows
+    (threads and process workers alike)."""
 
     def __init__(
         self,
@@ -159,10 +166,13 @@ class BatchLoader:
         process_count: int = 1,
         clamp_threads: bool = True,
     ):
-        if process_count > 1 or process_rank:
-            raise NotImplementedError(
-                "process-sliced loading (multi-process runs) comes with the DDP "
-                "slice of the port (ROADMAP queue 1, item 8)")
+        if not 0 <= process_rank < process_count:
+            raise ValueError(f"process_rank {process_rank} not in [0, {process_count})")
+        if batch_size % process_count:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"{process_count} processes")
+        self.process_rank = process_rank
+        self.process_count = process_count
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -246,11 +256,7 @@ class BatchLoader:
         order = np.arange(len(self.dataset))
         if self.shuffle:
             rng.shuffle(order)
-        n_batches = len(self)
-        batches = [
-            order[i * self.batch_size: (i + 1) * self.batch_size]
-            for i in range(n_batches)
-        ]
+        batches = self._batch_indices(order)
 
         if self.use_processes:
             pool = self._ensure_pool()
@@ -271,6 +277,15 @@ class BatchLoader:
         with ThreadPoolExecutor(threads) as pool:
             yield from self._drain(lambda idxs: pool.submit(load, idxs), batches,
                                    threads * 2, epoch)
+
+    def _batch_indices(self, order: np.ndarray) -> List[np.ndarray]:
+        """The dataset indices of each batch this process loads: the global
+        batches cut from ``order``, each narrowed to this process's
+        contiguous slice."""
+        per = self.batch_size // self.process_count
+        lo = self.process_rank * per
+        return [order[i * self.batch_size + lo: i * self.batch_size + lo + per]
+                for i in range(len(self))]
 
     def _drain(self, submit, batches, window, epoch):
         """Yield the batches in order, ``window`` of them in flight."""

@@ -33,6 +33,7 @@ from torch import nn
 from obman_train_tpu_torch.assets.mano_assets import ManoAssets
 from obman_train_tpu_torch.models.mano import ManoLayer, mano_forward
 from obman_train_tpu_torch.models.resnet import BatchNorm1d, Conv1d, Linear
+from obman_train_tpu_torch.parallel.mesh import global_draw
 
 # Hard-coded StereoHands shape coefficients (reference: manobranch.py:34-47).
 STEREO_SHAPE = np.array(
@@ -60,7 +61,8 @@ class Dropout(nn.Module):
     probability 1 - p and the kept ones are scaled by 1/(1 - p); in
     ``eval()`` the identity. The mask comes from ``generator`` (the train
     step seeds one from the run's seed and the update count), never from
-    torch's global generator."""
+    torch's global generator; in a distributed step it is the global
+    batch's mask, of which each rank keeps its rows (``parallel.global_draw``)."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -73,7 +75,7 @@ class Dropout(nn.Module):
         if generator is None:
             raise ValueError("dropout in train() needs an explicit torch.Generator")
         keep_prob = 1.0 - self.p
-        u = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+        u = global_draw(torch.rand, x.shape, generator, device=x.device, dtype=x.dtype)
         return torch.where(u < keep_prob, x / keep_prob, torch.zeros_like(x))
 
 
@@ -340,15 +342,16 @@ class AtlasBranch(nn.Module):
         """Random-cloud mode (JAX :312-328, reference atlasbranch.py:78-108):
         ``points_nb`` normal draws normalised onto the unit sphere, in the
         compute dtype, decoded with the image features. The draws come from
-        ``generator`` (the ``jax.random`` stream cannot be reproduced);
-        ``points`` (B, N, 3) injects sphere points instead, for tests."""
+        ``generator`` (the ``jax.random`` stream cannot be reproduced), in
+        a distributed step those of the global batch, each rank keeping its
+        rows; ``points`` (B, N, 3) injects sphere points instead, for tests."""
         B = img_features.shape[0]
         dt = self.dtype or img_features.dtype
         if points is None:
             if generator is None:
                 raise ValueError("the random-cloud decoder needs an explicit "
                                  "torch.Generator (or points)")
-            rand = torch.randn((B, self.points_nb, 3), generator=generator,
+            rand = global_draw(torch.randn, (B, self.points_nb, 3), generator,
                                device=img_features.device, dtype=dt)
             points = rand / torch.sqrt(torch.sum(rand**2, dim=-1, keepdim=True) + 1e-12)
         verts = self._decode(points.to(dt).transpose(1, 2), img_features)

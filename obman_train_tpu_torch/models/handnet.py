@@ -48,7 +48,13 @@ from obman_train_tpu_torch.config import ModelConfig
 from obman_train_tpu_torch.device import DeviceLike, resolve_device
 from obman_train_tpu_torch.models.branches import AbsoluteBranch, AtlasBranch, ManoBranch
 from obman_train_tpu_torch.models.losses import compute_atlas_loss, compute_mano_loss, mse
-from obman_train_tpu_torch.models.resnet import Linear, compute_dtype, resnet18, resnet50
+from obman_train_tpu_torch.models.resnet import (
+    Linear,
+    _FlaxTrainBN,
+    compute_dtype,
+    resnet18,
+    resnet50,
+)
 from obman_train_tpu_torch.ops.chamfer import min_sqdist_to, plane_dtype_for
 from obman_train_tpu_torch.ops.contact import ContainsFn, compute_contact_loss
 from obman_train_tpu_torch.ops.image import batched_color_jitter
@@ -98,6 +104,13 @@ class HandNet(nn.Module):
         make_resnet = {18: resnet18, 50: resnet50}[int(cfg.resnet_version)]
         self.base_net = make_resnet(dtype)
         self.atlas_base_net = make_resnet(dtype) if cfg.atlas.separate_encoder else None
+        if cfg.sync_bn:
+            # the encoders' BNs carry the data axis (JAX :77-80 bn_axis_name):
+            # the SyncBN step synchronizes them, not the atlas decoder's
+            for enc in (self.base_net, self.atlas_base_net):
+                for m in enc.modules() if enc is not None else ():
+                    if isinstance(m, _FlaxTrainBN):
+                        m.axis_synced = True
         self.atlas_adapter = (
             Linear(feat, feat, compute_dtype=dtype) if cfg.atlas.adapt_decoder else None
         )

@@ -25,6 +25,7 @@ import torch
 from obman_train_tpu_torch.assets.contact_zones import tips_mask, zone_masks
 from obman_train_tpu_torch.ops.chamfer import chamfer_min_sqdist, plane_dtype_for
 from obman_train_tpu_torch.ops.raytri import mesh_contains_points
+from obman_train_tpu_torch.parallel import mesh as parallel
 
 ContainsFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -46,10 +47,17 @@ def _tips_mask_on(device: torch.device) -> torch.Tensor:
 
 def masked_mean_loss(vals: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Mean of ``vals`` over ``mask``; 0 when the mask is empty
-    (reference: contactloss.py:50-57)."""
+    (reference: contactloss.py:50-57). Inside a distributed step over the
+    global batch the numerator (differentiably) and the denominator are
+    summed over the ranks: the mean over the global batch's mask, as the
+    JAX package's SPMD step computes it."""
     mask = mask.to(vals.dtype)
     denom = torch.sum(mask)
-    mean = torch.sum(vals * mask) / torch.clamp(denom, min=1.0)
+    numer = torch.sum(vals * mask)
+    dp = parallel.current()
+    if dp is not None and dp.global_batch:
+        numer, denom = parallel.all_reduce_sum(torch.stack([numer, denom])).unbind()
+    mean = numer / torch.clamp(denom, min=1.0)
     return torch.where(denom > 0, mean, torch.zeros_like(mean))
 
 

@@ -8,6 +8,7 @@ from obman_train_tpu_torch.train.steps import (
     make_eval_step,
     make_optimizer,
     make_train_step,
+    make_train_step_syncbn,
     points_generator,
 )
 
@@ -22,5 +23,6 @@ __all__ = [
     "make_eval_step",
     "make_optimizer",
     "make_train_step",
+    "make_train_step_syncbn",
     "points_generator",
 ]

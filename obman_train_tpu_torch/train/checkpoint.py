@@ -23,6 +23,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 from obman_train_tpu_torch.config import ExperimentConfig
+from obman_train_tpu_torch.parallel import mesh as parallel
 from obman_train_tpu_torch.train.steps import TrainState
 
 CONFIG_NAME = "opt.json"
@@ -51,18 +52,22 @@ def save_checkpoint(
     """Write ``<exp_dir>/checkpoint.pth.tar`` (+ snapshot and best copies,
     + ``opt.json``); returns its path. The file is written under a
     temporary name and renamed, so a run cut mid-write leaves the previous
-    checkpoint whole."""
-    os.makedirs(exp_dir, exist_ok=True)
+    checkpoint whole. In a distributed run every rank calls it: rank 0
+    writes (the state is identical on every rank) and all ranks wait at a
+    barrier until the file is whole (JAX :50-72)."""
     path = os.path.join(exp_dir, CHECKPOINT_NAME)
-    tmp = path + ".tmp"
-    torch.save(_payload(state, epoch), tmp)
-    os.replace(tmp, path)
-    if snapshot and epoch % snapshot == 0:
-        shutil.copyfile(path, os.path.join(exp_dir, f"checkpoint_{epoch}.pth.tar"))
-    if is_best:
-        shutil.copyfile(path, os.path.join(exp_dir, BEST_NAME))
-    if config is not None:
-        config.to_json(os.path.join(exp_dir, CONFIG_NAME))
+    if parallel.process_index() == 0:
+        os.makedirs(exp_dir, exist_ok=True)
+        tmp = path + ".tmp"
+        torch.save(_payload(state, epoch), tmp)
+        os.replace(tmp, path)
+        if snapshot and epoch % snapshot == 0:
+            shutil.copyfile(path, os.path.join(exp_dir, f"checkpoint_{epoch}.pth.tar"))
+        if is_best:
+            shutil.copyfile(path, os.path.join(exp_dir, BEST_NAME))
+        if config is not None:
+            config.to_json(os.path.join(exp_dir, CONFIG_NAME))
+    parallel.barrier()
     return path
 
 

@@ -21,6 +21,15 @@ copied with the predicted joints into pinned host memory without blocking
 host waits on that copy's event only one batch later. A figure's tensors
 (its first ``FIGURE_SAMPLES`` rows) travel in the same copy.
 
+Distributed (after ``parallel.init_distributed``; JAX :100-130, :187,
+:365-395): every rank runs the same device work in the same order, figure
+forwards included (they hold collectives: a rank that skipped one would
+stall the others); rank 0 alone writes the monitor's logs, the figures,
+the PCK curve and the checkpoint; each rank dumps its own rows of a val
+batch as ``batch_<i>_rank<r>.pkl``; the PCK pools are merged over the
+ranks at the end of each pass, and the meters read the step's losses,
+already averaged over the ranks, so every rank holds the same metrics.
+
 Two departures from the JAX loop keep a resumed run on the path of one
 that never stopped: the train loader is set to the epoch being run (the
 JAX loader restarts its seeded order at 0 on resume), and the regul decay
@@ -41,6 +50,7 @@ import torch
 from obman_train_tpu_torch.assets.contact_zones import DATA_PATH
 from obman_train_tpu_torch.config import ExperimentConfig
 from obman_train_tpu_torch.data.loader import derive_spec
+from obman_train_tpu_torch.parallel import mesh as parallel
 from obman_train_tpu_torch.train.checkpoint import save_checkpoint
 from obman_train_tpu_torch.train.metrics import AverageMeters, EvalUtil
 from obman_train_tpu_torch.train.steps import (
@@ -163,6 +173,7 @@ def epoch_pass(
     time_meters = AverageMeters()
     evaluator = EvalUtil()
     train_steps, eval_steps = {}, {}
+    rank, multiproc = parallel.process_index(), parallel.process_count() > 1
 
     def train_step_for(spec):
         if spec not in train_steps:
@@ -182,7 +193,7 @@ def epoch_pass(
         step's copies), the evaluator feed, the figure, the result dumps."""
         batch_idx, batch, root, copy = pending
         losses, results, figure = copy.get()
-        if figure is not None:
+        if figure is not None and rank == 0:
             _draw_figure(display_dir, batch_idx, batch, figure, net.ico_faces_np)
         for key, v in losses.items():
             avg_meters.add_loss_value(key, v)
@@ -200,7 +211,10 @@ def epoch_pass(
                 "results": results,
                 "root": root,
             }
-            with open(os.path.join(save_results_dir, f"batch_{batch_idx:06d}.pkl"), "wb") as f:
+            # each rank dumps its own rows (together, every sample once)
+            suffix = f"_rank{rank}" if multiproc else ""
+            with open(os.path.join(save_results_dir, f"batch_{batch_idx:06d}{suffix}.pkl"),
+                      "wb") as f:
                 pickle.dump(payload, f)
 
     end = time.time()
@@ -326,7 +340,10 @@ def _fit(cfg, state, train_loader, val_loader, start_epoch, profile_dir):
         os.path.join(cfg.host_folder, os.path.basename(os.path.normpath(cfg.exp_id)))
         if cfg.host_folder else None
     )
-    monitor = Monitor(cfg.exp_id, hosting_folder=hosting)
+    # rank 0 writes the logs, figures, PCK artifacts and checkpoints; the
+    # metrics are the same on every rank
+    is_main = parallel.process_index() == 0
+    monitor = Monitor(cfg.exp_id, hosting_folder=hosting) if is_main else None
     best_score = None
 
     for epoch in range(start_epoch, cfg.train.epochs):
@@ -346,7 +363,7 @@ def _fit(cfg, state, train_loader, val_loader, start_epoch, profile_dir):
                     train_bn=not cfg.train.freeze_batchnorm,
                     display_dir=display_dir("train"), display_freq=cfg.display_freq)
 
-            if profile_dir and epoch == start_epoch:
+            if profile_dir and epoch == start_epoch and is_main:
                 state, train_meters, train_pck = _profiled(profile_dir, epoch, run_train)
             else:
                 state, train_meters, train_pck = run_train()
@@ -358,7 +375,8 @@ def _fit(cfg, state, train_loader, val_loader, start_epoch, profile_dir):
             schedule = lr_schedule(cfg.train, steps_per_epoch=max(len(train_loader), 1))
             train_dict["lr"] = float(schedule(max(state.step - 1, 0)))
             train_dict["regul_scale"] = float(state.regul_scale)
-            monitor.log_train(epoch + 1, train_dict)
+            if is_main:
+                monitor.log_train(epoch + 1, train_dict)
 
         save_dir = None
         if cfg.save_results:
@@ -370,11 +388,12 @@ def _fit(cfg, state, train_loader, val_loader, start_epoch, profile_dir):
         for k in ("auc", "epe_mean", "epe_median"):
             if k in pck_info:
                 val_dict[k] = pck_info[k]
-        monitor.log_val(epoch + 1, val_dict)
-        if pck_info:
-            _save_pck_artifacts(cfg, epoch, pck_info, val_loader)
-        monitor.save_metrics()
-        monitor.plot_metrics()
+        if is_main:
+            monitor.log_val(epoch + 1, val_dict)
+            if pck_info:
+                _save_pck_artifacts(cfg, epoch, pck_info, val_loader)
+            monitor.save_metrics()
+            monitor.plot_metrics()
 
         if cfg.evaluate:
             return state, val_dict
@@ -393,4 +412,4 @@ def _fit(cfg, state, train_loader, val_loader, start_epoch, profile_dir):
                 np.float32(state.regul_scale) * np.float32(cfg.train.regul_decay_gamma))
         save_checkpoint(cfg.exp_id, state, epoch + 1, config=cfg, is_best=is_best,
                         snapshot=cfg.train.snapshot)
-    return state, monitor.metrics
+    return state, monitor.metrics if is_main else {}

@@ -86,14 +86,37 @@ class EvalUtil:
         return np.concatenate(self._dists, 0), np.concatenate(self._vis, 0)
 
     def merge_distributed(self):
-        """Pool the error shards of every process (the JAX package's
-        all-gather, :85-169). A no-op in one process; the multi-process half
-        comes with the DDP slice."""
+        """Pool every rank's error shards so that each rank computes the
+        GLOBAL PCK/EPE/AUC (the JAX package's all-gather, :85-169); a no-op
+        in one process. One ``all_gather_object`` over the host (gloo)
+        group carries each rank's float64 pools with its summary (feed
+        count, batch, keypoints); the branch is decided from the gathered
+        summaries, identical on every rank. When every rank fed the same
+        sequence of batch shapes (the process-sliced loader's), the pool is
+        reassembled in GLOBAL row order, batch by batch with the ranks
+        interleaved, so the merged measures equal one process's bit for
+        bit; otherwise the ranks' pools are concatenated in rank order."""
+        from obman_train_tpu_torch.parallel import mesh as parallel
+
+        if parallel.process_count() == 1:
+            return
         import torch.distributed as dist
 
-        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-            raise NotImplementedError(
-                "merging PCK pools across processes comes with the DDP slice")
+        shapes = {d.shape for d in self._dists}
+        b, k = shapes.pop() if len(shapes) == 1 else (-1, -1)
+        mine = ((len(self._dists), b, k), self._dists, self._vis)
+        gathered = [None] * parallel.process_count()
+        dist.all_gather_object(gathered, mine, group=parallel.host_group())
+        summaries = [g[0] for g in gathered]
+        uniform = (all(s == summaries[0] for s in summaries) and summaries[0][0] > 0
+                   and summaries[0][1] != -1)
+        if uniform:
+            feeds = summaries[0][0]
+            self._dists = [np.concatenate([g[1][i] for g in gathered]) for i in range(feeds)]
+            self._vis = [np.concatenate([g[2][i] for g in gathered]) for i in range(feeds)]
+            return
+        self._dists = [d for g in gathered for d in g[1]]
+        self._vis = [v for g in gathered for v in g[2]]
 
     def get_measures(self, val_min: float, val_max: float, steps: int):
         """Returns (epe_mean_all, epe_mean_per_kp, epe_median_all, auc_all,

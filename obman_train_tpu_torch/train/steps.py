@@ -19,6 +19,14 @@
   in ``train()`` its microbatch forwards update the running statistics in
   sequence, as the scan carries them.
 - ``make_eval_step``: losses and predictions without gradients.
+- Data parallel (steps built after ``parallel.init_distributed``; JAX: the
+  same steps jitted over a batch-sharded global mesh): each rank runs its
+  rows of the global batch
+  inside ``parallel.data_parallel``, so BatchNorm statistics, the contact
+  masked means and the random draws are the global batch's, then one
+  all-reduce of a flat buffer averages the gradients and the losses over
+  the ranks (:class:`_RankMean`). ``make_train_step_syncbn`` is
+  the JAX ``shard_map`` SyncBN step.
 - ``compute_dtype="bfloat16"``: the forward computes in bf16 on the float32
   parameters, so gradients, the optimizer's moments and the updates stay
   float32 and the optimizers are unchanged; no loss scaling (JAX uses
@@ -33,15 +41,18 @@ schedule, the update count and the regul decay factor.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from obman_train_tpu_torch.config import TrainConfig
 from obman_train_tpu_torch.device import DeviceLike, resolve_device
 from obman_train_tpu_torch.models.handnet import BatchSpec, HandNet
+from obman_train_tpu_torch.models.resnet import _FlaxTrainBN
+from obman_train_tpu_torch.parallel import mesh as parallel
 
 EVAL_KEYS = ("verts", "joints", "objpoints3d", "objtrans", "objscale",
              "joints2d", "center3d")
@@ -179,6 +190,86 @@ def _to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
             for k, v in batch.items()}
 
 
+def _data_axis() -> Optional[parallel.DataParallel]:
+    """The step's :class:`~parallel.DataParallel`: the world when
+    ``parallel.init_distributed`` has run, else None (one process)."""
+    return parallel.world_axis() if parallel.is_distributed() else None
+
+
+class _RankMean:
+    """Averages a step's gradients of ``params`` and its ``losses`` over the
+    ranks in ONE all-reduce of a flat buffer (the JAX ``pmean``).
+
+    A parameter without a gradient on this rank enters as zeros with a flag
+    of 0, so every rank sends the same layout whatever its rows reached; a
+    parameter that no rank reached keeps ``grad=None`` (the optimizer skips
+    it, as one process would). The flags ride in the same buffer; which
+    parameters get a gradient follows from the config and the batch spec,
+    fixed for a step, so the world's flags are read on the host (a
+    synchronization) at the first call and again only when this rank's own
+    pattern changes. The averaged gradients are views of the buffer. Every
+    rank receives the same sums, so the parameters and optimizer states
+    stay bit-identical after the update."""
+
+    def __init__(self, dp: parallel.DataParallel):
+        self.dp = dp
+        self._reached = None  # (this rank's gradient pattern, the world's)
+
+    def __call__(self, params, losses: Dict) -> Dict:
+        keys = [k for k, v in losses.items() if v is not None]
+        if not params and not keys:
+            return losses
+        local = tuple(p.grad is not None for p in params)
+        ref = params[0] if params else losses[keys[0]]
+        dt = ref.dtype if params else torch.float32
+        flags = torch.ones(len(params), dtype=dt, device=ref.device)
+        if not all(local):
+            flags[torch.tensor([i for i, hit in enumerate(local) if not hit])] = 0
+        parts = [p.grad.reshape(-1) if p.grad is not None else p.new_zeros(p.numel())
+                 for p in params]
+        parts += [flags, torch.stack([losses[k].detach().reshape(()).to(dt) for k in keys])
+                  if keys else flags.new_zeros(0)]
+        flat = torch.cat(parts)
+        dist.all_reduce(flat)
+        flat.div_(self.dp.world)
+        n_grad = sum(p.numel() for p in params)
+        if self._reached is None or self._reached[0] != local:
+            world = flat[n_grad:n_grad + len(params)].tolist()
+            self._reached = (local, tuple(v > 0 for v in world))
+        offset = 0
+        for p, hit in zip(params, self._reached[1]):
+            if hit:
+                p.grad = flat[offset:offset + p.numel()].view_as(p)
+            offset += p.numel()
+        means = flat[n_grad + len(params):]
+        out = dict(losses)
+        for k, v in zip(keys, means):
+            out[k] = v.to(losses[k].dtype)
+        return out
+
+
+def _average_unsynced_bn_stats(net: nn.Module, dp: parallel.DataParallel) -> None:
+    """The SyncBN step's ``pmean`` of the running statistics (JAX :362-365)
+    for the BatchNorms that normalized each rank's own rows (the atlas
+    decoder's); the synced ones are identical on every rank already."""
+    bufs = [b for m in net.modules()
+            if isinstance(m, _FlaxTrainBN) and not m.axis_synced
+            for b in (m.running_mean, m.running_var)]
+    if not bufs:
+        return
+    flat = torch.cat([b.reshape(-1) for b in bufs])
+    dist.all_reduce(flat)
+    flat.div_(dp.world)
+    offset = 0
+    for b in bufs:
+        b.copy_(flat[offset:offset + b.numel()].view_as(b))
+        offset += b.numel()
+
+
+def _optimizer_params(opt: torch.optim.Optimizer):
+    return [p for group in opt.param_groups for p in group["params"]]
+
+
 def make_train_step(
     net: HandNet,
     opt: torch.optim.Optimizer,
@@ -205,10 +296,70 @@ def make_train_step(
     ``train_bn=True`` runs the forwards in ``train()`` (unfrozen BN and
     dropout) and puts the net back in ``eval()`` after the step, also when
     the step raises.
+
+    Built after ``parallel.init_distributed``, it is the data-parallel
+    step: ``batch`` is this rank's contiguous
+    rows of the global batch (the process-sliced loader's), and the step
+    computes what one process computes on the global batch, within the
+    reduction order's rounding: global BN statistics, global masked means,
+    the global batch's dropout masks and sphere points, gradients and
+    losses averaged over the ranks. With ``accum_steps=A`` the rank's rows
+    ``i::A`` are global microbatch ``i``, which needs the rank's rows to
+    divide by A. The gradients are averaged by one explicit all-reduce
+    after the last microbatch's backward, not by ``DistributedDataParallel``:
+    the step already sums its microbatches itself, the BN buffers are
+    global already (nothing to broadcast), and a parameter that a flag
+    leaves without a gradient needs no ``find_unused_parameters`` (see
+    :class:`_RankMean`).
     """
+    return _build_train_step(net, opt, spec, train_bn, accum_steps, device, return_joints,
+                             _data_axis())
+
+
+def make_train_step_syncbn(
+    net: HandNet,
+    opt: torch.optim.Optimizer,
+    spec: BatchSpec,
+    return_joints: bool = False,
+    device: DeviceLike = None,
+) -> Callable[[TrainState, Dict], Tuple]:
+    """The SyncBN train step (JAX :308-388): unfrozen BN whose batch
+    statistics are synchronized over the ranks, gradients and losses
+    averaged, parameters identical on every rank. Needs
+    ``ModelConfig(sync_bn=True)`` (as the JAX step does) and an initialized
+    process group; the CLI does not reach it.
+
+    It differs from ``make_train_step(train_bn=True)`` in distributed use
+    where the JAX ``shard_map`` body reduces over each shard's own rows
+    (``DataParallel(global_batch=False)``): each rank computes the contact
+    terms' masked means over its OWN rows and the ranks' losses are
+    averaged, where ``make_train_step`` normalizes by the global batch's
+    mask count; and only the BatchNorms built with the data axis (the
+    ResNet encoders', ``sync_bn``) use the global statistics, the atlas
+    decoder's normalize each rank's rows and their running statistics are
+    averaged over the ranks after the step (the JAX ``pmean`` of
+    ``batch_stats``). Dropout masks are the global batch's rows here too
+    (the JAX step draws the same local mask on every shard from its
+    replicated key, a quirk of the reference that is not copied)."""
+    if not net.cfg.sync_bn:
+        raise ValueError("make_train_step_syncbn needs ModelConfig(sync_bn=True)")
+    dp = parallel.world_axis(global_batch=False)
+    step = _build_train_step(net, opt, spec, True, 1, device, return_joints, dp)
+
+    def syncbn_step(state: TrainState, batch: Dict):
+        out = step(state, batch)
+        with torch.no_grad():
+            _average_unsynced_bn_stats(net, dp)
+        return out
+
+    return syncbn_step
+
+
+def _build_train_step(net, opt, spec, train_bn, accum_steps, device, return_joints, dp):
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     dev = _net_device(net, device)
+    rank_mean = _RankMean(dp) if dp is not None else None
     use_dropout = train_bn and bool(net.cfg.fc_dropout)
     random_cloud = not net.cfg.atlas.mesh
 
@@ -238,13 +389,29 @@ def make_train_step(
     def update(state: TrainState, batch: Dict):
         batch = _to_device(batch, dev)
         net.zero_grad(set_to_none=True)
+        with parallel.data_parallel(dp):
+            losses, joints = accumulate(state, batch)
+        if dp is not None:
+            losses = rank_mean(_optimizer_params(opt), losses)
+        lr = state.lr_fn(state.step)
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.step()
+        state.step += 1
+        if return_joints:
+            return state, losses, joints
+        return state, losses
+
+    def accumulate(state: TrainState, batch: Dict):
         if accum_steps == 1:
             losses, joints = forward_backward(batch, state.regul_scale, gen_for(state, 0))
         else:
             b = int(batch["images"].shape[0])
             if b % accum_steps:
                 raise ValueError(
-                    f"batch size {b} not divisible by accum_steps {accum_steps}")
+                    f"batch size {b} not divisible by accum_steps {accum_steps}"
+                    + (f" (a rank's rows of the global batch, {b * dp.world}, must "
+                       "divide: its rows i::A are then global microbatch i)" if dp else ""))
             losses, joints = None, None
             for i in range(accum_steps):
                 micro = {k: v[i::accum_steps] if v.ndim and v.shape[0] == b else v
@@ -263,14 +430,7 @@ def make_train_step(
                     if p.grad is not None:
                         p.grad.mul_(inv)
             losses = {k: v * inv for k, v in losses.items()}
-        lr = state.lr_fn(state.step)
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
-        state.step += 1
-        if return_joints:
-            return state, losses, joints
-        return state, losses
+        return losses, joints
 
     return step_fn
 
@@ -282,13 +442,20 @@ def make_eval_step(
     """``eval(batch) -> (losses, out)`` without gradients (JAX :391-417);
     ``out`` holds the results named in ``keys`` that the forward computes:
     by default the predictions the evaluators read; the epoch loop's
-    figures also take ``contact_info``."""
+    figures also take ``contact_info``. Built after
+    ``parallel.init_distributed``, the losses are the global batch's, averaged
+    over the ranks, and ``out`` holds this rank's rows: every rank must
+    call it, as every collective."""
     dev = _net_device(net, device)
+    dp = _data_axis()
+    rank_mean = _RankMean(dp) if dp is not None else None
 
     def eval_fn(batch: Dict):
         net.eval()
-        with torch.no_grad():
+        with torch.no_grad(), parallel.data_parallel(dp):
             _, results, losses = net(_to_device(batch, dev), spec, no_loss=no_loss)
+        if dp is not None:
+            losses = rank_mean([], losses)
         return losses, {k: results[k] for k in keys if k in results}
 
     return eval_fn

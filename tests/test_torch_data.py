@@ -144,13 +144,23 @@ def test_set_epoch_replays_the_seeded_stream():
 
 
 def test_unported_paths_raise(monkeypatch, tmp_path):
-    """Process-sliced loading still waits for the DDP slice; the real
-    datasets are ported: ``get_dataset`` loads each name on a fabricated
-    tree (read here with cv2 hidden: PIL decode, the float chain), and an
-    unknown name raises ``ValueError``."""
+    """Process-sliced loading is ported: with ``process_count=2`` each
+    rank loads its contiguous half of every global batch, the two halves
+    are the one-process batch, and a global batch that does not divide
+    raises. The real datasets are ported: ``get_dataset`` loads each name
+    on a fabricated tree (read here with cv2 hidden: PIL decode, the float
+    chain), and an unknown name raises ``ValueError``."""
     ds = factory.get_dataset("synthetic", "train", meta=META)
-    with pytest.raises(NotImplementedError, match="DDP slice"):
-        loader.BatchLoader(ds, batch_size=4, process_count=2)
+    whole = next(iter(loader.BatchLoader(ds, batch_size=4, num_workers=1)))
+    halves = [next(iter(loader.BatchLoader(ds, batch_size=4, num_workers=1, process_rank=r,
+                                           process_count=2))) for r in range(2)]
+    for k, v in whole.items():
+        if v.ndim and v.shape[0] == 4:
+            assert np.array_equal(np.concatenate([h[k] for h in halves]), v), k
+        else:
+            assert all(np.array_equal(h[k], v) for h in halves), k
+    with pytest.raises(ValueError, match="divisible"):
+        loader.BatchLoader(ds, batch_size=5, process_count=2)
     # the fabricators encode with cv2
     monkeypatch.setitem(sys.modules, "cv2", _CV2)
     trees = real_trees(tmp_path / "trees")

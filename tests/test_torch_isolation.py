@@ -104,6 +104,8 @@ def test_walk_covers_every_slice_module():
         "obman_train_tpu_torch.data.fabricate", "obman_train_tpu_torch.data.obman",
         "obman_train_tpu_torch.data.fhbhands", "obman_train_tpu_torch.data.stereohands",
         "obman_train_tpu_torch.data.core50", "obman_train_tpu_torch.data.visualize",
+        # data-parallel training
+        "obman_train_tpu_torch.parallel", "obman_train_tpu_torch.parallel.mesh",
     ):
         assert name in walked, name
 

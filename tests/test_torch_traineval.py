@@ -89,18 +89,22 @@ def test_args_to_config_matches_jax(argv):
 
 
 # the ids are those of the cases when all five raised; bf16, geometry_dtype
-# and the random cloud are ported now and train, and the evaluation with
-# saved results runs the grasp simulation (``refused`` None)
+# and the random cloud are ported now and train, the evaluation with saved
+# results runs the grasp simulation (``refused`` None), and --distributed
+# without torchrun's environment raises the launch error
 @pytest.mark.parametrize("extra,refused", [
-    pytest.param(["--distributed"], "DDP", id="extra0-DDP"),
+    pytest.param(["--distributed"], (RuntimeError, "torchrun"), id="extra0-DDP"),
     pytest.param(["--compute_dtype", "bfloat16"], None, id="extra1-bf16"),
     pytest.param(["--geometry_dtype", "float32_select"], None, id="extra2-geometry_dtype"),
     pytest.param(["--no_atlas_mesh"], None, id="extra3-random-cloud"),
     pytest.param(["--evaluate", "--save_results"], None, id="extra4-host-tooling"),
 ])
-def test_flags_of_later_slices_raise(cpu, tmp_path, extra, refused):
+def test_flags_of_later_slices_raise(cpu, monkeypatch, tmp_path, extra, refused):
     if refused is not None:
-        with pytest.raises(NotImplementedError, match=refused):
+        for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK"):
+            monkeypatch.delenv(var, raising=False)
+        exc, match = refused
+        with pytest.raises(exc, match=match):
             pcli.main(BASE + ["--exp_id", str(tmp_path / "x")] + extra)
         assert not os.path.exists(tmp_path / "x")  # raised before any side effect
         return
