@@ -25,7 +25,13 @@ each fatal on failure:
    repeats in the later ones. K1 also at the voxel shapes of
    ``intersect_vox`` (B=1, the whole grid in one launch): a 32^3 lattice
    over a synthetic hand's box against its 1538 faces, and a 16^3 one over
-   an icosphere-3 object (1280 faces);
+   an icosphere-3 object (1280 faces); its rows print its launch plan
+   (points per thread R, slices S of the triangles, blocks), and every
+   ragged point tile (P 1, 31, 33, 129, 778) against every ragged staged
+   chunk (T 1, a chunk -+ 1, 1280) and the shapes whose plan splits the
+   triangles across blocks (1x4096x1280, 1x20000x1280, 2x129x1280,
+   1x778x1280) must be bitwise the plain version's, one launch counted
+   each;
 4. backward: ``chamfer_loss`` forward and gradient on the kernel route
    against the same VJP on the plain nearest-neighbour version;
    large-cloud Chamfer path: ``chamfer_loss`` at 1x16384x16384 with its
@@ -335,36 +341,61 @@ def raytri_scene(B, P, T, seed):
     return pts.cuda(), tris.cuda()
 
 
-def phase_kernels():
-    """K1 against its plain version; returns the kernel's JSON entry."""
+# K1's exactness shapes beyond the table rows: every ragged point tile (P
+# against the 32-point rows and the 32 * ROWS tile) against every ragged
+# chunk (T against the staged chunk of raytri.CHUNK triangles), then the
+# shapes whose plan splits the triangles across blocks
+RAYTRI_P = (1, 31, 33, 129, 778)
+RAYTRI_SPLIT = ((1, 4096, 1280), (1, 20000, 1280), (2, 129, 1280), (1, 778, 1280))
+
+
+def _raytri_t(chunk):
+    return (1, chunk - 1, chunk + 1, 1280)
+
+
+def _raytri_exact(label, pts, table):
+    """Fatal unless one ``raytri_count`` call, counted once, equals the
+    plain version bit for bit; returns the counts."""
     import torch
 
     from obman_train_tpu_torch.ops import raytri
+    from obman_train_tpu_torch.ops.kernels import LAUNCHES
+
+    before = LAUNCHES[raytri.KERNEL]
+    got = raytri.raytri_count(pts, table)
+    torch.cuda.synchronize()
+    if LAUNCHES[raytri.KERNEL] != before + 1:
+        fail(f"raytri {label}: {LAUNCHES[raytri.KERNEL] - before} launches counted, not 1")
+    want = raytri.raytri_count_plain(pts, table)
+    bad = int((got != want).sum())
+    if bad:
+        fail(f"raytri kernel disagrees with the plain version at {bad} points ({label})")
+    return got, want
+
+
+def phase_kernels():
+    """K1 against its plain version; returns the kernel's JSON entry."""
+    from obman_train_tpu_torch.ops import nnsqdist, raytri
 
     set_tf32(False)
     P, T = 778, 1280
     pts, tris = raytri_scene(B_FULL, P, T, seed=0)
     table = raytri.triangle_table(tris)
-    got = raytri.raytri_count(pts, table)
-    torch.cuda.synchronize()
-    want = raytri.raytri_count_plain(pts, table)
-    mismatches = int((got != want).sum())
-    max_err = int((got - want).abs().max())
+    got, want = _raytri_exact(f"B={B_FULL} P={P} T={T}", pts, table)
     exterior = int((got % 2 == 0).sum())
     interior = got.numel() - exterior
-    log(f"raytri B={B_FULL} P={P} T={T}: {mismatches} mismatches, max |count diff| "
-        f"{max_err}, interior {interior}, exterior {exterior}")
-    if mismatches:
-        fail(f"raytri kernel disagrees with the plain version at {mismatches} points")
+    log(f"raytri B={B_FULL} P={P} T={T}: 0 mismatches, interior {interior}, "
+        f"exterior {exterior}")
     if interior == 0 or exterior == 0:
         fail("raytri scene must hold both interior and exterior points")
-    for seed, (b, p, t) in enumerate([(3, 100, 77), (2, 129, 513), (1, 1, 1)], 1):
+    sms = nnsqdist._sms(pts.device)
+    shapes = [(3, p, t) for p in RAYTRI_P for t in _raytri_t(raytri.CHUNK)]
+    for seed, (b, p, t) in enumerate([*shapes, *RAYTRI_SPLIT], 1):
         rp, rt = raytri_scene(b, p, t, seed)
-        rtab = raytri.triangle_table(rt)
-        n = int((raytri.raytri_count(rp, rtab) != raytri.raytri_count_plain(rp, rtab)).sum())
-        log(f"raytri ragged B={b} P={p} T={t}: {n} mismatches")
-        if n:
-            fail(f"raytri kernel disagrees on the ragged case B={b} P={p} T={t}")
+        _raytri_exact(f"B={b} P={p} T={t}", rp, raytri.triangle_table(rt))
+        plan = raytri._launch_plan(b, p, t, sms)
+        log(f"raytri ragged/split B={b} P={p} T={t}: 0 mismatches, one launch, plan "
+            f"R={plan[0]} S={plan[1]} slice {plan[2]} blocks {plan[3]}")
 
     entry = _raytri_entry(raytri.KERNEL, pts, table, got, want, iters=50)
     entry["path"] = "traineval"
@@ -373,21 +404,24 @@ def phase_kernels():
 
 def _raytri_entry(name, pts, table, got, want, iters):
     """The kernel-table row of one K1 shape: times of the kernel (eager and
-    from a CUDA graph) and of its plain version, the bound and its share."""
-    from obman_train_tpu_torch.ops import raytri
+    from a CUDA graph) and of its plain version, the bound and its share,
+    and the launch plan."""
+    from obman_train_tpu_torch.ops import nnsqdist, raytri
 
     B, P, _ = pts.shape
     T = table.shape[1]
+    plan = dict(zip(("rows", "slices", "slice_len", "blocks"),
+                    raytri._launch_plan(B, P, T, nnsqdist._sms(pts.device))))
     kernel_ms = cuda_ms(lambda: raytri.raytri_count(pts, table), iters=iters)
     device_ms = graph_ms(lambda: raytri.raytri_count(pts, table), iters=iters)
     plain_ms = cuda_ms(lambda: raytri.raytri_count_plain(pts, table), iters=3, warmup=1)
-    ops = B * P * T * RAYTRI_OPS_PER_TEST
-    nbytes = pts.numel() * 4 + table.numel() * 4 + got.numel() * 4
-    ops_ms, bytes_ms = ops / PEAK_FP32_INSTS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
-    log(f"raytri times at {B}x{P}x{T} (warm L2, TF32 off): kernel {kernel_ms:.4f} ms (device "
+    bound = raytri_bound(B, P, T)
+    bound_ms = bound["bound_ms"]
+    log(f"raytri times at {B}x{P}x{T} (warm L2, TF32 off), plan R={plan['rows']} "
+        f"S={plan['slices']} blocks {plan['blocks']}: kernel {kernel_ms:.4f} ms (device "
         f"{device_ms:.4f} ms), plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms "
-        f"(ops {ops_ms:.4f} ms, bytes {bytes_ms:.4f} ms), {bound_ms / device_ms:.1%} of it")
+        f"(ops {bound['ops_ms']:.4f} ms, bytes {bound['bytes_ms']:.4f} ms), "
+        f"{bound_ms / device_ms:.1%} of it")
     return {
         "name": name,
         "counter": raytri.KERNEL,
@@ -403,11 +437,21 @@ def _raytri_entry(name, pts, table, got, want, iters):
         "device_ms": device_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "bound_by": bound["bound_by"],
         "library_ms": None,  # no single PyTorch call computes ray parity
         "share_of_bound": bound_ms / device_ms,
+        "plan": plan,
         "tf32": "off",
     }
+
+
+def raytri_bound(B, P, T):
+    """K1's least time at (B, P, T): 36 float32 instructions a test at the
+    card's rate against each input read and each count written once."""
+    ops_ms = B * P * T * RAYTRI_OPS_PER_TEST / PEAK_FP32_INSTS * 1e3
+    bytes_ms = (B * P * 3 + B * T * 16 + B * P) * 4 / PEAK_HBM_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms), "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
 def _lattice(lo, hi, n):
@@ -418,39 +462,45 @@ def _lattice(lo, hi, n):
     return np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1).reshape(-1, 3)
 
 
-def phase_voxel_kernels():
-    """K1 at the voxel shapes of ``intersect_vox``: the whole grid in one
-    launch (B=1). A 32^3 lattice (32768 points, metres) over the box of the
-    synthetic MANO hand at a seeded pose against its 1538 faces, and a 16^3
-    lattice over an icosphere-3 object (1280 faces) of 40 mm radius, each
-    box padded by 5 mm; exact against the plain version."""
+def voxel_scenes():
+    """K1's inputs at the voxel shapes of ``intersect_vox``, the whole grid
+    in one launch (B=1): ``[(name, points (1, n^3, 3), triangles (1, T, 3,
+    3))]`` on the card. A 32^3 lattice (32768 points, metres) over the box
+    of the synthetic MANO hand at a seeded pose against its 1538 faces, and
+    a 16^3 lattice over an icosphere-3 object (1280 faces) of 40 mm radius,
+    each box padded by 5 mm."""
     import numpy as np
     import torch
 
     from obman_train_tpu_torch.assets import icosphere
-    from obman_train_tpu_torch.ops import raytri
     from obman_train_tpu_torch.simulation.savemano import _hand_faces
 
-    set_tf32(False)
     hand = _seeded_scenes(1, seed=11)[0][0].astype(np.float64) * 0.001
     ico_v, ico_f = icosphere(3)
     obj = ico_v * 0.04 + hand.mean(0)
-    rows = []
+    out = []
     for name, verts, faces, n in (("raytri_count_voxel_hand", hand, _hand_faces(), 32),
                                   ("raytri_count_voxel_object", obj, ico_f, 16)):
         grid = _lattice(verts.min(0) - 0.005, verts.max(0) + 0.005, n)
         pts = torch.from_numpy(grid.astype(np.float32)).cuda()[None]
         v = torch.from_numpy(verts.astype(np.float32)).cuda()
-        tris = v[torch.from_numpy(np.asarray(faces, np.int64)).cuda()][None]
+        out.append((name, pts, v[torch.from_numpy(np.asarray(faces, np.int64)).cuda()][None]))
+    return out
+
+
+def phase_voxel_kernels():
+    """K1 at the voxel shapes of ``intersect_vox`` (``voxel_scenes``);
+    exact against the plain version."""
+    from obman_train_tpu_torch.ops import raytri
+
+    set_tf32(False)
+    rows = []
+    for name, pts, tris in voxel_scenes():
         table = raytri.triangle_table(tris)
-        got = raytri.raytri_count(pts, table)
-        torch.cuda.synchronize()
-        want = raytri.raytri_count_plain(pts, table)
+        got, want = _raytri_exact(f"voxel grid {name}", pts, table)
         inside = int((got % 2 == 1).sum())
         log(f"raytri voxel grid 1x{pts.shape[1]}x{tris.shape[1]} ({name}): "
-            f"{int((got != want).sum())} mismatches, {inside} voxels inside")
-        if not torch.equal(got, want):
-            fail(f"raytri kernel disagrees with the plain version on the voxel grid {name}")
+            f"0 mismatches, {inside} voxels inside")
         if inside == 0:
             fail(f"the voxel grid {name} holds no interior point")
         entry = _raytri_entry(name, pts, table, got, want, iters=50)

@@ -304,6 +304,21 @@ def load_mano_pair(mano_assets_dir: str, fix_left_shapedirs: bool = False):
             load_mano_assets(mano_assets_dir, "left", fix_left_shapedirs=fix_left_shapedirs))
 
 
+def one_card_notice(device_type: str, cards: int, environ) -> str | None:
+    """The line to print when a run without torchrun sees several CUDA
+    cards: it trains on one of them. The JAX CLI builds a mesh over every
+    local device in one process (its ``cli/traineval.py:483``); the port
+    runs one process per card, which torchrun starts. ``None`` otherwise."""
+    from obman_train_tpu_torch.parallel.mesh import TORCHRUN_VARS
+
+    if device_type != "cuda" or cards <= 1 or any(v in environ for v in TORCHRUN_VARS):
+        return None
+    return (f"{cards} CUDA cards are visible and this run trains on one of them; to train "
+            f"on all {cards}, launch one rank per card: python -m torch.distributed.run "
+            f"--nproc_per_node {cards} -m obman_train_tpu_torch.cli.traineval "
+            "--distributed ...")
+
+
 def _write_opt_txt(exp_id: str, argv) -> None:
     """The command line and git description (argutils.py:35-47)."""
     with open(os.path.join(exp_id, "opt.txt"), "a") as f:
@@ -357,6 +372,9 @@ def main(argv=None):
         cfg.to_json(os.path.join(cfg.exp_id, "opt.json"))
     name = f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""
     print(f"Device: {device}{name}")
+    notice = one_card_notice(device.type, torch.cuda.device_count(), os.environ)
+    if notice:
+        print(notice)
 
     net = build_handnet(cfg.model, *load_mano_pair(cfg.mano_assets, args.fix_left_shapedirs),
                         device=device)

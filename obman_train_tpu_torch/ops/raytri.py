@@ -6,6 +6,11 @@ quantities are precomputed in PyTorch exactly as the Pallas wrapper does in
 XLA (raytri_kernel.py:86-94); the kernel counts hits per query point; the
 parity of the count gives the exterior mask.
 
+Each thread of the kernel holds several points, the warps of a block
+split the triangles, and when the point tiles alone leave the card short of
+blocks (one voxel grid), :func:`_launch_plan` also splits the triangles
+across blocks (``S`` slices whose integer counts add exactly).
+
 Dispatch goes by the tensor's device: a CUDA tensor launches the kernel
 (and raises if it cannot be built or launched), a CPU tensor takes the
 plain version :func:`raytri_count_plain`, which repeats the kernel's
@@ -20,6 +25,7 @@ import torch
 
 from obman_train_tpu_torch.ops.inside import RAY_DIRECTION, TOL
 from obman_train_tpu_torch.ops.kernels import LAUNCHES
+from obman_train_tpu_torch.ops.nnsqdist import H100_SMS, _sms
 
 KERNEL = "raytri_count"
 # Floats per triangle in the table: four float4 rows (see raytri.cu).
@@ -31,6 +37,21 @@ _TOL_F32 = torch.tensor(TOL, dtype=torch.float32).item()
 # stay ~64 MB each (chunked over the batch, and over the points of a
 # large example such as a voxel grid).
 _PLAIN_ELEMS = 1 << 24
+
+# The launch plan (raytri.cu): a block holds 32 * ROWS points, and its
+# WARPS warps split each staged chunk of CHUNK triangles. When the point
+# tiles give fewer than _SPLIT_BELOW blocks per SM and, dealt to the SMs,
+# keep them less than _FILL busy (the SMs that get one block more set the
+# time), the triangles are cut into slices, each a block of its own, until
+# the grid has about _BLOCKS_PER_SM blocks per SM, but with slices of
+# _MIN_SLICE triangles or more, a multiple of 32 long.
+ROWS = 4  # points per thread, kR of raytri.cu
+WARPS = 8  # kWarps of raytri.cu
+CHUNK = 384  # kChunk of raytri.cu
+_SPLIT_BELOW = 4
+_FILL = 0.9
+_BLOCKS_PER_SM = 8
+_MIN_SLICE = 64
 
 
 def triangle_table(triangles: torch.Tensor) -> torch.Tensor:
@@ -128,8 +149,7 @@ def raytri_count(points: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"raytri_count: unsupported device {points.device}")
     B, P, _ = points.shape
     T = table.shape[1]
-    if B > 65535:
-        raise ValueError(f"raytri_count: batch {B} exceeds the grid's y limit")
+    _, slices, slice_len, _ = _launch_plan(B, P, T, _sms(points.device))
     points = points.contiguous()
     table = table.contiguous()
     if table.data_ptr() % 16:
@@ -140,7 +160,7 @@ def raytri_count(points: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(points.device).cuda_stream
         err = lib.raytri_count(
             points.data_ptr(), table.data_ptr(), B, P, T, *_DIR_F32, _TOL_F32,
-            counts.data_ptr(), stream,
+            slices, slice_len, counts.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"raytri_count kernel launch failed: CUDA error {err}")
@@ -148,14 +168,46 @@ def raytri_count(points: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return counts
 
 
+def _launch_plan(B: int, P: int, T: int, sms: int = H100_SMS):
+    """``(rows, S, slice_len, blocks)`` of one ``raytri_count`` launch on a
+    card of ``sms`` SMs: points per thread, slices of the triangles,
+    triangles per slice (the last one ragged), and the blocks of the grid
+    ``(ceil(P / (32 rows)), S, B)``. ``S`` is 1 unless the point tiles
+    alone give fewer than ``_SPLIT_BELOW`` blocks per SM and fill the SMs'
+    last round less than ``_FILL``. Raises where the grid or the kernel's
+    int32 indices cannot hold the launch."""
+    if B > 65535:
+        raise ValueError(f"raytri_count: batch {B} exceeds the grid's z limit")
+    if P >= 2**31 // 3:
+        raise ValueError(f"raytri_count: {P} points exceed the int32 index")
+    if T >= 2**31 // 4:
+        raise ValueError(f"raytri_count: {T} triangles exceed the int32 index")
+    rows = ROWS
+    tiles = -(-P // (32 * rows))
+    base = tiles * B
+    slices = 1
+    if 0 < base < _SPLIT_BELOW * sms and base < _FILL * sms * -(-base // sms):
+        slices = max(1, min(-(-_BLOCKS_PER_SM * sms // base), -(-T // _MIN_SLICE)))
+    slice_len = -(-T // slices)
+    if slices > 1:
+        slice_len = -(-slice_len // 32) * 32
+        slices = -(-T // slice_len)
+    return rows, slices, slice_len, tiles * slices * B
+
+
 def _library() -> ctypes.CDLL:
     from obman_train_tpu_torch.ops.kernels import build
 
-    lib = build.load("raytri")
+    return bind(build.load("raytri"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C interface of a built ``raytri.cu`` on ``lib``."""
     lib.raytri_count.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p,
     ]
     lib.raytri_count.restype = ctypes.c_int
     return lib

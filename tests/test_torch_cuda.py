@@ -51,7 +51,16 @@ def _scene(seed, B, P, n_tris=None):
             torch.from_numpy(tris.astype(np.float32)))
 
 
-@pytest.mark.parametrize("B,P,n_tris", [(8, 778, None), (3, 100, 77), (1, 1, 1)])
+# every ragged point tile against every ragged staged chunk, and the shapes
+# whose launch plan splits the triangles across blocks (voxel grids, the
+# contact forward of one sample and of 32)
+_RAGGED = [(2, p, t) for p in (1, 31, 33, 129, 778)
+           for t in (1, raytri.CHUNK - 1, raytri.CHUNK + 1, 1280)]
+_SPLIT = [(1, 4096, 1280), (1, 20000, 1280), (1, 778, 1280), (32, 778, 1280)]
+
+
+@pytest.mark.parametrize("B,P,n_tris",
+                         [(8, 778, None), (3, 100, 77), (1, 1, 1), *_RAGGED, *_SPLIT])
 def test_raytri_kernel_equals_plain(cuda, B, P, n_tris):
     pts, tris = (t.to(cuda) for t in _scene(B + P, B, P, n_tris))
     table = raytri.triangle_table(tris)

@@ -1,7 +1,8 @@
 """Data-parallel training in the port (``parallel/``, the distributed train
 and eval steps, the process-sliced loader, the PCK pool merge,
 ``cli.traineval --distributed``) on the CPU: ranks are real processes
-(``subprocess``, torchrun's environment, a free port, gloo), as
+(``subprocess``, torchrun's environment, a rendezvous store that the test
+holds as torchrun's agent does, gloo), as
 ``tests/test_distributed.py`` spawns the JAX package's.
 
 - (i) Two ranks of ``cli.traineval --distributed`` against the same argv
@@ -41,18 +42,20 @@ and eval steps, the process-sliced loader, the PCK pool merge,
   pool.
 """
 
+import datetime
 import json
 import os
 import pickle
-import socket
 import subprocess
 import sys
+import time
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from obman_train_tpu.config import TrainConfig as JTrain
 from obman_train_tpu.data import loader as jloader
@@ -80,12 +83,6 @@ CONTACT_KEYS = ("attraction_loss", "penetration_loss", "contact_loss", "max_pene
                 "mean_penetr", "contact_auc")
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _env(threads=2, **extra):
     """The test's environment without torchrun's variables, plus ``extra``."""
     env = {k: v for k, v in os.environ.items() if k not in TORCHRUN_VARS}
@@ -103,37 +100,66 @@ def start(code, args, log_path, env):
     return proc, log
 
 
+# rank 0's process -> the rendezvous store its ranks connect to, held by
+# this process until finish() has waited for them
+_STORES = {}
+
+
 def start_ranks(code, args, logdir, world=2, threads=2):
     """``world`` ranks of ``python -c code *args`` with torchrun's
-    environment on a free port, on the CPU; ``{rank}`` in an argument is
-    the rank."""
-    port = _free_port()
-    return [start(code, [str(a).replace("{rank}", str(r)) for a in args],
-                  os.path.join(logdir, f"rank{r}.log"),
-                  _env(threads, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(r),
-                       WORLD_SIZE=str(world), LOCAL_RANK=str(r),
-                       LOCAL_WORLD_SIZE=str(world)))
-            for r in range(world)]
+    environment, on the CPU; ``{rank}`` in an argument is the rank.
+
+    As torchrun's agent does, this process hosts the rendezvous store
+    (``TORCHELASTIC_USE_AGENT_STORE``): it binds the store's port itself and
+    keeps it bound until :func:`finish`, and every rank only connects to it.
+    A port probed free and released before the ranks start (as this helper
+    did before) can be bound by another process before rank 0 binds it,
+    and the rendezvous then fails."""
+    store = dist.TCPStore("127.0.0.1", 0, None, True,
+                          timeout=datetime.timedelta(seconds=600), wait_for_workers=False)
+    started = [start(code, [str(a).replace("{rank}", str(r)) for a in args],
+                     os.path.join(logdir, f"rank{r}.log"),
+                     _env(threads, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(store.port),
+                          TORCHELASTIC_USE_AGENT_STORE="True", RANK=str(r),
+                          WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                          LOCAL_WORLD_SIZE=str(world)))
+               for r in range(world)]
+    _STORES[started[0][0]] = store
+    return started
 
 
 def finish(started, timeout=300):
-    """Wait for the processes; each must exit 0. Returns their outputs."""
+    """Wait for the processes; each must exit 0. Returns their outputs.
+
+    They are polled together: the first one to fail stops the others and
+    fails the caller at once with its output, and past ``timeout`` seconds
+    the error names the processes still running, with their output."""
     procs = [p for p, _ in started]
+    deadline = time.monotonic() + timeout
+    codes, failed, running = [None] * len(procs), None, list(range(len(procs)))
     try:
-        for p in procs:
-            p.wait(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-        raise
+        while running and failed is None and time.monotonic() < deadline:
+            time.sleep(0.2)
+            codes = [p.poll() for p in procs]
+            failed = next((i for i, c in enumerate(codes) if c not in (None, 0)), None)
+            running = [i for i, c in enumerate(codes) if c is None]
     finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            _STORES.pop(p, None)
         outs = []
         for _, f in started:
             f.seek(0)
             outs.append(f.read())
             f.close()
-    for i, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"process {i} failed:\n{out[-6000:]}"
+    if failed is not None:
+        raise AssertionError(f"process {failed} (pid {procs[failed].pid}) exited "
+                             f"{codes[failed]}:\n{outs[failed][-6000:]}")
+    if running:
+        raise AssertionError(f"timed out after {timeout} s waiting for " + "; ".join(
+            f"process {i} (pid {procs[i].pid}):\n{outs[i][-3000:]}" for i in running))
     return outs
 
 
@@ -603,6 +629,22 @@ def test_launch_environment_errors(monkeypatch):
         parallel.init_distributed(device="cpu")
     assert not parallel.is_distributed()
     assert parallel.process_index() == 0 and parallel.process_count() == 1
+
+
+def test_one_card_notice_without_torchrun():
+    """Several CUDA cards and none of torchrun's variables: ``cli.traineval``
+    says that it trains on one card and names the torchrun launch (the JAX
+    CLI would build a mesh over all of them in one process)."""
+    from obman_train_tpu_torch.cli.traineval import one_card_notice
+
+    line = one_card_notice("cuda", 8, {"PATH": "/bin"})
+    assert "8 CUDA cards" in line and "trains on one" in line
+    assert "torch.distributed.run --nproc_per_node 8" in line and "--distributed" in line
+    assert "\n" not in line
+    assert one_card_notice("cuda", 1, {}) is None
+    assert one_card_notice("cpu", 8, {}) is None
+    for v in TORCHRUN_VARS:
+        assert one_card_notice("cuda", 8, {v: "0"}) is None
 
 
 def test_shard_batch_and_local_shard():

@@ -126,7 +126,7 @@ def test_native_sources_are_the_ports_own_files():
     assert os.path.realpath(build._LIB_DIR).startswith(os.path.realpath(PACKAGE) + os.sep)
 
 
-SCRIPTS = ["chip_smoke.py"] + sorted(
+SCRIPTS = ["chip_smoke.py", "tools/nn_dir_ab.py", "tools/raytri_ab.py"] + sorted(
     os.path.join("tools", n) for n in os.listdir(os.path.join(REPO, "tools"))
     if n.startswith("torch_") and n.endswith(".py"))
 

@@ -145,3 +145,84 @@ def test_wrapper_validates_inputs():
     with pytest.raises(ValueError):
         raytri.raytri_count(pts.to("meta"), table.to("meta"))
 
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's launch plan (ops/raytri.py::_launch_plan), walked in
+# Python as raytri.cu walks it
+# ---------------------------------------------------------------------------
+
+
+def test_plan_constants_mirror_the_kernel_source():
+    """ROWS, WARPS and CHUNK are raytri.cu's kR, kWarps, kChunk."""
+    src = os.path.join(os.path.dirname(raytri.__file__), "kernels", "raytri.cu")
+    with open(src) as f:
+        text = f.read()
+    for name, value in (("kR", raytri.ROWS), ("kWarps", raytri.WARPS),
+                        ("kChunk", raytri.CHUNK)):
+        assert f"constexpr int {name} = {value};" in text, name
+
+
+@pytest.mark.parametrize("B,P,T,split", [
+    (256, 778, 1280, False),  # the main path: one block per point tile
+    (1, 32768, 1538, False),  # the hand voxel grid: 256 tiles fill the SMs
+    (1, 4096, 1280, True),    # the object voxel grid: 32 tiles for 132 SMs
+    (1, 20000, 1280, True),   # 157 tiles: 25 SMs would take two, the rest one
+])
+def test_plan_splits_only_when_the_sms_are_short(B, P, T, split):
+    rows, slices, slice_len, blocks = raytri._launch_plan(B, P, T, sms=132)
+    assert rows == raytri.ROWS
+    tiles = -(-P // (32 * rows))
+    assert blocks == tiles * slices * B
+    assert (slices > 1) == split
+    if split:
+        assert slice_len % 32 == 0 and slice_len >= raytri._MIN_SLICE
+        assert (slices - 1) * slice_len < T <= slices * slice_len
+        assert tiles * B < 132 * raytri._SPLIT_BELOW
+    else:
+        assert slice_len == T
+
+
+def _walk(B, P, T, sms):
+    """How many times each (point, triangle) pair of one batch element is
+    tested by the blocks of the plan: tiles of 32 * rows points (the last
+    one with the rows it still has), slices of the triangles, each staged
+    chunk split in contiguous parts across the warps."""
+    rows, slices, slice_len, blocks = raytri._launch_plan(B, P, T, sms)
+    tiles = -(-P // (32 * rows))
+    assert blocks == tiles * slices * B
+    cover = np.zeros((P, T), np.int32)
+    for x in range(tiles):
+        p0 = x * 32 * rows
+        r_block = min(rows, (P - p0 + 31) // 32)
+        pts = np.arange(p0, min(P, p0 + 32 * r_block))
+        for s in range(slices):
+            j0, j1 = s * slice_len, min(T, (s + 1) * slice_len)
+            assert j0 < j1 or T == 0  # no empty slice
+            for start in range(j0, j1, raytri.CHUNK):
+                n = min(raytri.CHUNK, j1 - start)
+                per = -(-n // raytri.WARPS)
+                for w in range(raytri.WARPS):
+                    lo = min(n, w * per)
+                    hi = min(n, lo + per)
+                    cover[pts[:, None], start + np.arange(lo, hi)[None, :]] += 1
+    return cover
+
+
+@pytest.mark.parametrize("B,P,T", [
+    (256, 778, 1280), (1, 4096, 1280), (1, 20000, 1280), (2, 129, 1280),
+    (3, 1, 1), (3, 31, 255), (3, 33, 257), (1, 129, 256), (1, 778, 1),
+])
+def test_plan_blocks_cover_every_pair_once(B, P, T):
+    cover = _walk(B, P, T, sms=132)
+    assert cover.min() == 1 and cover.max() == 1
+
+
+def test_plan_raises_past_the_grid_limits():
+    with pytest.raises(ValueError, match="z limit"):
+        raytri._launch_plan(65536, 10, 10)
+    with pytest.raises(ValueError, match="int32"):
+        raytri._launch_plan(1, 2**31 // 3, 10)
+    with pytest.raises(ValueError, match="int32"):
+        raytri._launch_plan(1, 10, 2**31 // 4)
+    assert raytri._launch_plan(65535, 1, 1)[3] == 65535
