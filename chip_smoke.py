@@ -157,13 +157,28 @@ each fatal on failure:
    checkpoint's parameters rtol 5e-3 / atol 5e-4, the rank pickles' GT
    joints exactly, rank 0 alone writing the logs and the checkpoint,
    launches per rank per train step and val forward; both runs' samples/s
-   and the gradient all-reduce's milliseconds a step.
+   and the gradient all-reduce's milliseconds a step;
+13. the JAX package's last public ops: (a) ``compute_naive_contact_loss``
+   at B=256, the 778 vertices of seeded synthetic MANO hands against the
+   642 of icosphere-3 objects that cross them (each direction's share of
+   minima under 25 mm^2 printed, and held within 5-95 %), forward and
+   backward on the kernel route (``"auto"``: two ``nn_dir<true>`` launches
+   a forward, none in the backward, no K1), counted, against the float64
+   formula and against the plane route (``use_kernel=False``) on the card
+   and in the CPU port, TF32 off: the loss within 1e-5 relative, the
+   gradients within 1e-5 of each tensor's largest entry outside the rows
+   where the routes select differently, the plane ties or the threshold
+   mask flips (counted, each differing selection within the plane's
+   rounding); both routes' eager times; (b) ``rotmat_to_axis_angle`` on
+   B x 16 rotations from ``rodrigues`` on the card against the CPU port
+   within 1e-5, the round trip within 1e-4.
 
 Output: progress lines, then one JSON line ``{"kernels": [...]}``, one
 JSON line ``{"traineval": {...}}``, one JSON line ``{"serving": {...}}``,
 one JSON line ``{"precision": {...}}``, one JSON line
 ``{"simulation": {...}}``, one JSON line ``{"datasets": {...}}``, one JSON
-line ``{"distributed": {...}}``, the ``nvidia-smi`` line, and as the last line
+line ``{"distributed": {...}}``, one JSON line ``{"public_ops": {...}}``,
+the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 With no GPU, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -3237,6 +3252,278 @@ def phase_distributed(tmp, phase6_rates):
     return result
 
 
+# Phase 13, the JAX package's last public ops (ops/contact.py:71-87,
+# ops/rotations.py:47-62): the naive contact loss on the kernel route and on
+# the plane route, on the card and in the CPU port, and the rotation
+# inverse on the card against the CPU port.
+NAIVE_THRESH = 25.0  # mm^2, the JAX default contact_threshold
+NAIVE_SHARE = (0.05, 0.95)  # each direction's share of minima under it
+# one both-way argmin sweep a forward (x->y and y->x, one nn_dir<true>
+# launch each), none in the backward (gather + index_add_), no K1
+NAIVE_LAUNCHES = {"nn_dir_argmin": 2}
+NAIVE_REL = 1e-5  # the loss, relative; the gradients, of each tensor's largest entry
+ROT_TOL = 1e-5
+
+
+def _naive_scene(B, seed):
+    """Hands (B, 778, 3) of the synthetic MANO model at seeded PCA poses and
+    icosphere-3 objects (B, 642, 3) of 30-60 mm radius centred within ~10 mm
+    of the hand's centroid, so that the object's surface crosses the hand
+    and part of each direction's minima lies under the threshold; mm,
+    float32."""
+    import numpy as np
+    import torch
+
+    from obman_train_tpu_torch.assets import icosphere, synthetic_mano_assets
+    from obman_train_tpu_torch.models.mano import ManoLayer, mano_forward
+
+    rng = np.random.default_rng(seed)
+    pose = torch.from_numpy(rng.normal(0, 0.5, (B, 9)).astype(np.float32))
+    with torch.no_grad():
+        hands = mano_forward(ManoLayer(synthetic_mano_assets("right")), pose)[0].numpy()
+    verts, _ = icosphere(3)
+    centres = hands.mean(1) + rng.normal(0, 10, (B, 3))
+    objs = verts[None] * rng.uniform(30, 60, (B, 1, 1)) + centres[:, None]
+    return torch.from_numpy(hands), torch.from_numpy(objs.astype(np.float32))
+
+
+def _naive_route(x, y, use_kernel):
+    """``compute_naive_contact_loss`` forward and backward on fresh leaves:
+    ``(loss, grad wrt x, grad wrt y)``."""
+    from obman_train_tpu_torch.ops import compute_naive_contact_loss
+
+    p1 = x.detach().clone().requires_grad_(True)
+    p2 = y.detach().clone().requires_grad_(True)
+    loss = compute_naive_contact_loss(p1, p2, NAIVE_THRESH, use_kernel=use_kernel)
+    loss.backward()
+    return loss.detach(), p1.grad, p2.grad
+
+
+def _plane_selection(x, y):
+    """The dense plane's minima, first argmins and tied rows, both ways:
+    ``{"x2y": (min, argmin, tied, tied targets (B, M)), "y2x": ...}``."""
+    import torch
+
+    from obman_train_tpu_torch.ops.chamfer import batch_pairwise_sqdist
+
+    with torch.no_grad():
+        d = batch_pairwise_sqdist(x, y)
+        out = {}
+        for key, dim in (("x2y", 2), ("y2x", 1)):
+            m = torch.amin(d, dim=dim)
+            eq = d == m.unsqueeze(dim)
+            tied = eq.sum(dim) > 1
+            # the rows of the other cloud that a tied row's gradient reaches
+            reach = (eq & tied.unsqueeze(dim)).any(3 - dim)
+            out[key] = (m, torch.argmin(d, dim=dim), tied, reach)
+        del d
+    return out
+
+
+def _exact_minima(x, y):
+    """Both directions' minima from direct differences in float64."""
+    import torch
+
+    mx, my = [], []
+    for b in range(0, x.shape[0], 16):
+        d = ((x[b:b + 16, :, None].double() - y[b:b + 16, None].double()) ** 2).sum(-1)
+        mx.append(d.amin(2))
+        my.append(d.amin(1))
+        del d
+    return torch.cat(mx), torch.cat(my)
+
+
+def _naive_loss64(m_x2y, m_y2x, mask_x2y, mask_y2x):
+    """The reference formula in float64: the masked means over the whole
+    batch of each direction's minima, averaged."""
+    means = [float((m.double() * k).sum() / k.sum().clamp(min=1))
+             for m, k in ((m_y2x, mask_y2x), (m_x2y, mask_x2y))]
+    return (means[0] + means[1]) / 2
+
+
+def _naive_loss_agrees(label, loss, mins, want_loss, want_mins, bound):
+    """One route's loss against another's (``mins``: ``(x2y, y2x)``): within
+    ``NAIVE_REL`` relative; where a minimum lies within ``bound`` of the
+    threshold and the masks flip, the route's minima under the other's
+    masks within ``NAIVE_REL`` instead, each flip counted. The loss is also
+    its own minima's float64 formula within ``NAIVE_REL``."""
+    masks = [w < NAIVE_THRESH for w in want_mins]
+    flips = [int(((m < NAIVE_THRESH) != k).sum()) for m, k in zip(mins, masks)]
+    worst = max([float((w.double() - NAIVE_THRESH).abs()[(m < NAIVE_THRESH) != k].max())
+                 for m, w, k in zip(mins, want_mins, masks)
+                 if ((m < NAIVE_THRESH) != k).any()], default=0.0)
+    if worst > bound:
+        fail(f"naive contact {label}: a mask flips {worst} mm^2 from the threshold, "
+             f"outside the plane's rounding {bound}")
+    own = _naive_loss64(*mins, *[m < NAIVE_THRESH for m in mins])
+    if abs(float(loss) - own) > NAIVE_REL * abs(own):
+        fail(f"naive contact {label}: loss {float(loss)} is not its minima's {own}")
+    rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+    same_masks = abs(_naive_loss64(*mins, *masks) - float(want_loss)) / abs(float(want_loss))
+    if (same_masks if sum(flips) else rel) > NAIVE_REL:
+        fail(f"naive contact {label}: loss {float(loss)} against {float(want_loss)}, "
+             f"rel {rel} (on the same masks {same_masks}), flips {flips}")
+    return {"rel_err": rel, "rel_err_same_masks": same_masks, "mask_flips": flips,
+            "worst_flip_gap_mm2": worst}
+
+
+def _naive_grads_agree(label, x, y, kern, other, ksel, osel, bound):
+    """The kernel route's gradients (``kern``: loss, gx, gy) against a plane
+    route's (``other``) within ``NAIVE_REL`` of each tensor's largest entry,
+    outside the rows where the two select differently, where the plane
+    ties (it splits the gradient, the kernel gives it to the first
+    occurrence) or where the threshold mask flips, and the rows those
+    reach; each differing selection's candidates within the plane's
+    rounding ``bound`` of each other (``_selection_gaps``). A flip moves a
+    direction's count, so every other entry's scale by ``|dc| / c``: the
+    tolerance adds that share of the largest entry."""
+    import torch
+
+    B, N, M = x.shape[0], x.shape[1], y.shape[1]
+    skip_x = torch.zeros(B, N, dtype=torch.bool, device=x.device)
+    skip_y = torch.zeros(B, M, dtype=torch.bool, device=x.device)
+    stats, scale = {}, 0.0
+    for key, (q, s, skip_q, skip_s) in (("x2y", (x, y, skip_x, skip_y)),
+                                        ("y2x", (y, x, skip_y, skip_x))):
+        km, ka = ksel[key]
+        om, oa, tied, reach = osel[key]
+        kmask, omask = km < NAIVE_THRESH, om < NAIVE_THRESH
+        differ = ka != oa
+        flip = kmask != omask
+        rows = differ | tied | flip
+        n_differ, worst = _selection_gaps(q, s, ka, oa)
+        if worst > bound:
+            fail(f"naive contact {label} {key}: a differing selection {worst} mm^2 off, "
+                 f"outside the plane's rounding {bound}")
+        skip_q |= rows
+        skip_s |= reach
+        offs = torch.arange(B, device=x.device)[:, None] * s.shape[1]
+        for a in (ka, oa):  # the rows of the other cloud the two selections reach
+            skip_s.view(-1)[(a + offs)[rows]] = True
+        count_k, count_o = int(kmask.sum()), int(omask.sum())
+        scale += abs(count_k - count_o) / max(count_k, 1)
+        stats[key] = {"differing_selections": n_differ, "worst_gap_mm2": worst,
+                      "plane_ties": int(tied.sum()), "mask_flips": int(flip.sum()),
+                      "rows_left_out": int(rows.sum())}
+    errs = {}
+    for name, g, w, skip in (("x", kern[1], other[1], skip_x), ("y", kern[2], other[2], skip_y)):
+        w = w.to(g.device)
+        top = float(w.abs().max())
+        err = float((g - w).abs()[~skip].max())
+        tol = (NAIVE_REL + scale) * top
+        if err > tol:
+            fail(f"naive contact {label}: grad wrt {name} off by {err} outside the left-out "
+                 f"rows, tolerance {tol} ({NAIVE_REL} + {scale} of {top})")
+        errs[name] = {"max_abs_err": err, "largest": top, "rows_left_out": int(skip.sum()),
+                      "tolerance": tol}
+    return {"directions": stats, "grads": errs}
+
+
+def _rotations_on_card():
+    """``rotmat_to_axis_angle`` on the card (B x 16 rotations from
+    ``rodrigues``, angles under 3 rad) against the CPU port within
+    ``ROT_TOL``, the round trip within 1e-4, no kernel launched, its time."""
+    import numpy as np
+    import torch
+
+    from obman_train_tpu_torch.ops import rodrigues, rotmat_to_axis_angle
+
+    rng = np.random.default_rng(21)
+    axes = rng.normal(0, 1, (B_FULL, 16, 3))
+    axes /= np.linalg.norm(axes, axis=-1, keepdims=True)
+    aa = torch.from_numpy((axes * rng.uniform(0, 3.0, (B_FULL, 16, 1))).astype(np.float32))
+    rot = rodrigues(aa.cuda())
+    got, launches = _counted(lambda: rotmat_to_axis_angle(rot))
+    if launches:
+        fail(f"rotmat_to_axis_angle launched kernels: {launches}")
+    want = rotmat_to_axis_angle(rot.cpu())
+    err = float((got.cpu() - want).abs().max())
+    trip = float((got.cpu() - aa).abs().max())
+    if not (err <= ROT_TOL and trip <= 1e-4 and torch.isfinite(got).all()):
+        fail(f"rotmat_to_axis_angle on the card: {err} from the CPU port (tolerance "
+             f"{ROT_TOL}), round trip {trip} (1e-4)")
+    ms = cuda_ms(lambda: rotmat_to_axis_angle(rot), iters=50)
+    out = {"shape": list(rot.shape), "max_abs_err_vs_cpu_port": err,
+           "round_trip_max_abs_err": trip, "ms": ms, "launches": launches}
+    log(f"rotmat_to_axis_angle {list(rot.shape)} on the card: max abs err {err} against the "
+        f"CPU port ({ROT_TOL}), round trip {trip} (1e-4), {ms:.4f} ms eager, no kernel")
+    return out
+
+
+def phase_public_ops(smi_line):
+    """Phase 13: the naive contact loss at B=256 (778 hand vertices against
+    642 object vertices) on the kernel route, counted, against the plane
+    route on the card and the CPU port, and against the float64 formula;
+    the times of both routes; ``rotmat_to_axis_angle`` on the card."""
+    import torch
+
+    from obman_train_tpu_torch.ops import chamfer, compute_naive_contact_loss
+
+    t0 = time.perf_counter()
+    set_tf32(False)
+    x_cpu, y_cpu = _naive_scene(B_FULL, seed=13)
+    x, y = x_cpu.cuda(), y_cpu.cuda()
+    # the main path: the kernel route, forward and backward, counted from 0
+    kern, launches = _counted(lambda: _naive_route(x, y, "auto"))
+    if launches != NAIVE_LAUNCHES:
+        fail(f"naive contact loss launches {launches}, expected {NAIVE_LAUNCHES}")
+    plane, plane_launches = _counted(lambda: _naive_route(x, y, False))
+    if plane_launches:
+        fail(f"naive contact loss with use_kernel=False launched {plane_launches}")
+    cpu = _naive_route(x_cpu, y_cpu, "auto")
+    for name, r in (("kernel", kern), ("plane", plane), ("cpu port", cpu)):
+        if not all(torch.isfinite(t).all() for t in r) or r[1].shape != x.shape \
+                or r[2].shape != y.shape:
+            fail(f"naive contact loss, {name} route: non-finite or misshapen outputs")
+    # the comparisons' own sweeps are not counted
+    with torch.no_grad():
+        kx, kax, ky, kay = chamfer.chamfer_min_sqdist(x, y, use_kernel=True)
+    ksel = {"x2y": (kx, kax), "y2x": (ky, kay)}
+    shares = {k: float((v[0] < NAIVE_THRESH).float().mean()) for k, v in ksel.items()}
+    log(f"naive contact loss B={B_FULL} 778x642: shares of minima under {NAIVE_THRESH} "
+        f"mm^2: {json.dumps(shares)}")
+    if not all(NAIVE_SHARE[0] <= v <= NAIVE_SHARE[1] for v in shares.values()):
+        fail(f"naive contact scene: shares {shares} outside {NAIVE_SHARE}")
+    mag = float((x.double() ** 2).sum(-1).max() + (y.double() ** 2).sum(-1).max())
+    bound = NEAR_TIE["float32_select"] * mag
+    exact = _exact_minima(x, y)
+    ref = _naive_loss64(*exact, *[m < NAIVE_THRESH for m in exact])
+    result = {"B": B_FULL, "N": x.shape[1], "M": y.shape[1], "threshold_mm2": NAIVE_THRESH,
+              "shares_under_threshold": shares, "launches": launches,
+              "plane_launches": plane_launches, "plane_rounding_bound_mm2": bound,
+              "loss": {"kernel": float(kern[0]), "plane": float(plane[0]),
+                       "cpu_port": float(cpu[0]), "float64": ref}}
+    result["kernel_vs_float64"] = _naive_loss_agrees(
+        "kernel vs float64", kern[0], (kx, ky), ref, exact, bound)
+    osel = _plane_selection(x, y)
+    csel = _plane_selection(x_cpu, y_cpu)
+    csel = {k: tuple(t.cuda() for t in v) for k, v in csel.items()}
+    for label, r, sel in (("plane", plane, osel), ("cpu_port", cpu, csel)):
+        row = _naive_loss_agrees(f"kernel vs {label}", kern[0], (kx, ky), r[0],
+                                 (sel["x2y"][0], sel["y2x"][0]), bound)
+        row.update(_naive_grads_agree(f"kernel vs {label}", x, y, kern, r, ksel, sel, bound))
+        result[f"kernel_vs_{label}"] = row
+        log(f"naive contact loss, kernel route vs {label}: {json.dumps(row)}")
+    del osel, csel
+    # eager times between CUDA events, forward alone and with the backward
+    times = {}
+    for label, uk in (("kernel", "auto"), ("plane", False)):
+        def fwd(uk=uk):
+            with torch.no_grad():
+                return compute_naive_contact_loss(x, y, NAIVE_THRESH, use_kernel=uk)
+        times[f"{label}_fwd_ms"] = cuda_ms(fwd, iters=20)
+        times[f"{label}_fwd_bwd_ms"] = cuda_ms(lambda uk=uk: _naive_route(x, y, uk), iters=20)
+    result["times"] = times
+    result["nvidia_smi"] = smi_line
+    log(f"naive contact loss times on {smi_line} (TF32 off, eager): {json.dumps(times)}")
+    result["rotmat_to_axis_angle"] = _rotations_on_card()
+    del x, y
+    torch.cuda.empty_cache()
+    result["seconds"] = time.perf_counter() - t0
+    log(f"public ops phase: {result['seconds']:.1f} s")
+    return result
+
+
 def _optimizer_matches(state, saved):
     """Whether the optimizer's moments equal the saved ones."""
     import torch
@@ -3277,6 +3564,7 @@ def main() -> None:
         simulation = phase_simulation(te["exp"], tmp)
         datasets = phase_datasets(tmp)
         distributed = phase_distributed(tmp, train["samples_per_s"])
+    public_ops = phase_public_ops(smi_line)
     # launches: K1-K3 from run (a) of the training entry point, the main path
     # of this slice (with one train step's beside them); the large-cloud
     # rows', from the large-cloud Chamfer path
@@ -3346,6 +3634,10 @@ def main() -> None:
                for r in ("rank0", "rank1")},
             **{f"{r}_val_forward": dist_b[f"{r}_launches_per_val_forward"].get(c, 0)
                for r in ("rank0", "rank1")}}
+    # phase 13's path: the naive contact loss, forward and backward
+    for e in (entry, *voxel_entries, *nn_entries):
+        e["launches_naive_contact_loss"] = public_ops["launches"].get(
+            e.get("counter", e["name"]), 0)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [entry, *voxel_entries, *nn_entries]}), flush=True)
     print(json.dumps({"traineval": {
@@ -3363,6 +3655,7 @@ def main() -> None:
     print(json.dumps({"simulation": simulation}), flush=True)
     print(json.dumps({"datasets": datasets}), flush=True)
     print(json.dumps({"distributed": distributed}), flush=True)
+    print(json.dumps({"public_ops": public_ops}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

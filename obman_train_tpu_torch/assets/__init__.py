@@ -5,6 +5,7 @@ from obman_train_tpu_torch.assets.contact_zones import (
     zone_masks,
 )
 from obman_train_tpu_torch.assets.icosphere import icosphere
+from obman_train_tpu_torch.assets.laplacian import cotangent_laplacian
 from obman_train_tpu_torch.assets.mano_assets import (
     JOINT_REORDER,
     MANO_PARENTS,
@@ -23,6 +24,7 @@ __all__ = [
     "TIPS",
     "TIP_VERT_IDS",
     "ManoAssets",
+    "cotangent_laplacian",
     "icosphere",
     "load_contact_zones",
     "load_mano_assets",

@@ -11,6 +11,7 @@ from obman_train_tpu_torch.models.handnet import (
     HandNet,
     build_handnet,
 )
+from obman_train_tpu_torch.models.losses import compute_atlas_loss, compute_mano_loss
 from obman_train_tpu_torch.models.mano import ManoLayer, mano_forward
 from obman_train_tpu_torch.models.resnet import ResNet, resnet18, resnet50
 
@@ -26,6 +27,8 @@ __all__ = [
     "PointGenConResidual",
     "ResNet",
     "build_handnet",
+    "compute_atlas_loss",
+    "compute_mano_loss",
     "mano_forward",
     "resnet18",
     "resnet50",

@@ -61,6 +61,32 @@ def masked_mean_loss(vals: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(denom > 0, mean, torch.zeros_like(mean))
 
 
+def thres_loss(vals: torch.Tensor, thres: float = 25.0) -> torch.Tensor:
+    """Mean of the values below a threshold (JAX :71-74; reference:
+    contactloss.py:82-89), a :func:`masked_mean_loss`, so global inside a
+    distributed step."""
+    return masked_mean_loss(vals, vals < thres)
+
+
+def compute_naive_contact_loss(points_1: torch.Tensor, points_2: torch.Tensor,
+                               contact_threshold: float = 25.0,
+                               use_kernel="auto") -> torch.Tensor:
+    """Symmetric thresholded nearest-neighbour loss (JAX :76-87; reference:
+    contactloss.py:92-99) between ``points_1`` (B, N, 3) and ``points_2``
+    (B, M, 3). Both directions' minima come from
+    :func:`~obman_train_tpu_torch.ops.chamfer.chamfer_min_sqdist`:
+    ``"auto"`` takes the nearest-neighbour kernel on CUDA tensors (its
+    argmin sweeps, and their gather + ``index_add_`` backward; it raises
+    if the kernel cannot run) and the dense plane reduced by
+    ``torch.amin`` on CPU tensors, which splits a tied gradient evenly as
+    the JAX package's ``jnp.min`` does."""
+    min_x2y, _, min_y2x, _ = chamfer_min_sqdist(points_1, points_2, use_kernel=use_kernel)
+    # the JAX names: mins12 is the min over points_1 (B, M), mins21 (B, N)
+    loss_1 = thres_loss(min_y2x, contact_threshold)
+    loss_2 = thres_loss(min_x2y, contact_threshold)
+    return torch.mean((loss_1 + loss_2) / 2)
+
+
 def _target_diff(results_close, hand_verts, contact_target: str):
     if contact_target == "all":
         return results_close - hand_verts

@@ -1,8 +1,9 @@
-"""Axis-angle to rotation matrices (JAX package: ops/rotations.py:17-44).
+"""Axis-angle <-> rotation matrices (JAX package: ops/rotations.py).
 
-The quaternion form of the exponential map, as manopth uses: smooth at the
-origin (no 0/0 from sin(t)/t), which matters because learned pose
-parameters pass through zero.
+``rodrigues`` is the quaternion form of the exponential map, as manopth
+uses: smooth at the origin (no 0/0 from sin(t)/t), which matters because
+learned pose parameters pass through zero. ``rotmat_to_axis_angle`` is its
+inverse, operation for operation the JAX package's.
 """
 
 from __future__ import annotations
@@ -33,3 +34,25 @@ def rodrigues(axisang: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     return rot.reshape(axisang.shape[:-1] + (3, 3))
+
+
+def rotmat_to_axis_angle(rot: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Rotation matrices (..., 3, 3) -> axis-angle (..., 3), in the input's
+    dtype (JAX :47-62). The cosine is clamped to ``[-1 + eps, 1 - eps]``,
+    so in float32 (where ``1 - 1e-7`` rounds to ``1 - 2**-23``) the
+    identity maps to a 4.9e-4 rad angle times a zero axis; near pi the
+    skew part vanishes and the axis with it. Both are the JAX package's
+    results, kept."""
+    trace = rot[..., 0, 0] + rot[..., 1, 1] + rot[..., 2, 2]
+    cos = torch.clamp((trace - 1.0) * 0.5, -1.0 + eps, 1.0 - eps)
+    angle = torch.arccos(cos)
+    axis = torch.stack(
+        [
+            rot[..., 2, 1] - rot[..., 1, 2],
+            rot[..., 0, 2] - rot[..., 2, 0],
+            rot[..., 1, 0] - rot[..., 0, 1],
+        ],
+        dim=-1,
+    )
+    scale = angle / torch.clamp_min(2.0 * torch.sin(angle), eps)
+    return axis * scale[..., None]

@@ -608,3 +608,78 @@ def test_simulate_cli_on_cuda(cuda, tmp_path, monkeypatch):
     # 1 mm depth are ~1e-2 mm (see the test above)
     np.testing.assert_allclose(got["max_depths"], want["max_depths"], rtol=0, atol=1e-2)
     assert got_vol == intersect.full_intersect(str(tmp_path), device="cpu")
+
+
+def _grid_clouds(seed, B, N, M):
+    """Clouds on a 1/64 mm grid in a 25 mm cube: every square, product and
+    sum of the plane is a multiple of 2**-12 under 2**12, exact in float32,
+    so both routes see the same minima bit for bit."""
+    rng = np.random.default_rng(seed)
+    p1, p2 = (np.round(rng.uniform(-12.5, 12.5, (B, n, 3)) * 64) / 64 for n in (N, M))
+    return torch.from_numpy(p1.astype(np.float32)), torch.from_numpy(p2.astype(np.float32))
+
+
+def _naive_routes(p1, p2, dev):
+    """``compute_naive_contact_loss`` forward and backward on the card,
+    kernel route (counted) and plane route: ``{route: (loss, g1, g2)}``
+    and the kernel route's launches."""
+    from obman_train_tpu_torch.ops import compute_naive_contact_loss
+
+    out, launches = {}, None
+    for route, uk in (("kernel", "auto"), ("plane", False)):
+        a = p1.to(dev).requires_grad_(True)
+        b = p2.to(dev).requires_grad_(True)
+        torch.cuda.synchronize()
+        before = dict(LAUNCHES)
+        loss = compute_naive_contact_loss(a, b, use_kernel=uk)
+        loss.backward()
+        torch.cuda.synchronize()
+        counted = {k: v - before.get(k, 0) for k, v in LAUNCHES.items() if v != before.get(k, 0)}
+        if route == "kernel":
+            launches = counted
+        else:
+            assert counted == {}
+        out[route] = (loss.detach().cpu(), a.grad.cpu(), b.grad.cpu())
+    return out, launches
+
+
+def test_naive_contact_loss_kernel_route_on_cuda(cuda):
+    """On CUDA tensors ``"auto"`` is the kernel route: one argmin sweep each
+    way a forward (two ``nn_dir<true>`` launches), none in the backward,
+    no K1; it agrees with the plane route (loss 1e-6 relative, gradients
+    1e-6 of each tensor's largest entry: the backward's ``index_add_`` is
+    atomic) where no minimum ties."""
+    from obman_train_tpu_torch.ops.chamfer import batch_pairwise_sqdist
+
+    p1, p2 = _grid_clouds(0, 4, 64, 48)
+    d = batch_pairwise_sqdist(p1, p2)
+    for dim in (1, 2):  # no exact tie: the routes select alike
+        assert ((d == d.amin(dim, keepdim=True)).sum(dim) == 1).all()
+    out, launches = _naive_routes(p1, p2, cuda)
+    assert launches == {nnsqdist.KERNEL_ARGMIN: 2}
+    (kl, k1, k2), (pl, q1, q2) = out["kernel"], out["plane"]
+    torch.testing.assert_close(kl, pl, rtol=1e-6, atol=0)
+    for g, w in ((k1, q1), (k2, q2)):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-6 * float(w.abs().max()))
+
+
+def test_naive_contact_loss_tie_goes_to_the_first_copy_on_cuda(cuda):
+    """A duplicated ``points_2`` point nearest to ``points_1[:, 0]``: the
+    kernel route's argmin VJP gives that minimum's gradient to the first
+    copy, the plane route (``torch.amin``, as ``jnp.min``) splits it
+    evenly; the two copies' sum and every other row agree."""
+    p1, p2 = _grid_clouds(4, 2, 16, 8)
+    p2[:, 5] = p2[:, 2]
+    p1[:, 0] = p2[:, 2] + 0.5
+    out, _ = _naive_routes(p1, p2, cuda)
+    (kl, k1, k2), (pl, q1, q2) = out["kernel"], out["plane"]
+    torch.testing.assert_close(kl, pl, rtol=1e-6, atol=0)
+    tol = dict(rtol=0, atol=1e-6 * float(q2.abs().max()))
+    own = k2[:, 5]  # the copy's own terms, the same for both copies
+    torch.testing.assert_close(q2[:, 2], q2[:, 5], **tol)
+    torch.testing.assert_close(k2[:, 2] - own, 2 * (q2[:, 2] - own), **tol)
+    assert float((k2[:, 2] - own).abs().max()) > 100 * tol["atol"]
+    torch.testing.assert_close(k2[:, 2] + k2[:, 5], q2[:, 2] + q2[:, 5], **tol)
+    keep = [j for j in range(p2.shape[1]) if j not in (2, 5)]
+    torch.testing.assert_close(k2[:, keep], q2[:, keep], **tol)
+    torch.testing.assert_close(k1, q1, rtol=0, atol=1e-6 * float(q1.abs().max()))

@@ -1,24 +1,30 @@
 """The port's training run (``train/loop.fit``) against the JAX package's
 ``fit`` on the CPU, from the same initial weights (``state_dict_from_jax``
 of the JAX state), the default CLI config at 64 px, B=4, synthetic data,
-2 epochs of 2 train and 2 val steps, adam at lr 1e-4, no figures. Both
+2 epochs of 2 train and 2 val steps, adam at lr 1e-5, no figures. Both
 packages run the cv2-free data chain (cv2 hidden from both; the uint8 cv2
 chain is held bitwise in ``test_torch_data_cv2.py``), so they see the same
 batches bitwise.
 
-Tolerances, and the worst case measured when they were set:
+Tolerances, both epochs: every logged loss within 1e-4 relative, val EPE
+within 1e-3 mm, AUC within 1e-3. Measured (one AVX-512 host): worst 2.0e-6
+relative and 3.5e-5 mm, AUC equal; with the port's CPU kernels held to
+AVX2 (``ATEN_CPU_CAPABILITY=avx2 ONEDNN_MAX_CPU_ISA=AVX2``, as on a host
+without AVX-512) 2.9e-5 relative and 1.1e-4 mm.
 
-- epoch 1 (2 updates): every logged loss within 1e-4 relative, val EPE
-  within 1e-3 mm, AUC within 1e-3 (measured: 1.8e-6 relative, 7e-5 mm,
-  AUC equal);
-- epoch 2 (updates 3-4): the total loss within 1e-4 relative (measured
-  2.9e-5); every other loss within 5e-3 relative, val EPE within 0.05 mm
-  and AUC within 1e-3 (measured: 1.5e-3 on ``atlas_edge_regul``, under
-  1e-4 on the rest; EPE 0.012 mm; AUC equal). From the third update adam
-  turns float32 rounding differences of near-zero gradient entries into
-  updates of up to ~lr that differ, and the edge regularizer of the
-  decoded mesh reads them most (one step's gradients agree to 1e-3 of each
-  tensor's largest entry, ``test_torch_train_step.py``).
+Why lr 1e-5 and not the CLI's 1e-4: at 1e-4 the four adam updates turn
+float32 rounding differences into different weights fast enough that the
+comparison hinges on which CPU kernels each package runs. There the
+measured gap was 1.5e-3 relative at epoch 2 (``atlas_edge_regul``) on the
+AVX-512 kernels, but 7.3e-4 at epoch 1 and 0.059 mm of val EPE at epoch 2
+on the AVX2 kernels, over tolerances of 1e-4 and 0.05 mm that then held
+epoch 2 only to 5e-3. ``test_torch_train_step.py`` holds one step to JAX;
+what this file checks is the loop's parity, at a rate where rounding stays
+rounding. The run still trains (the train loss falls from epoch 1 to 2).
+
+``python -m tests.test_torch_fit [--lr 1e-4]`` prints each metric's gap
+against its tolerance, worst first (the figures above, with and without
+the two variables).
 """
 
 import sys
@@ -36,7 +42,7 @@ torch.set_num_threads(2)
 ARGV = ["--train_datasets", "synthetic", "--val_datasets", "synthetic",
         "--mano_assets", "synthetic", "--synthetic_size", "8", "--image_size", "64",
         "--train_batch", "4", "--test_batch", "4", "--epochs", "2", "--display_freq", "0",
-        "--workers", "2"]
+        "--workers", "2", "--lr", "1e-5"]
 META = {"size": 8, "img_res": 64}
 
 
@@ -50,13 +56,13 @@ def _loaders(factory, loader):
     return make("train", True), make("val", False)
 
 
-def _jax_fit(exp):
+def _jax_fit(exp, argv):
     from obman_train_tpu.data import factory, loader
     from obman_train_tpu.models import build_handnet
     from obman_train_tpu.train import create_train_state, make_optimizer
     from obman_train_tpu.train.loop import _to_device, fit
 
-    cfg = jcli.args_to_config(jcli.build_parser().parse_args(ARGV + ["--exp_id", exp]))
+    cfg = jcli.args_to_config(jcli.build_parser().parse_args(argv + ["--exp_id", exp]))
     net = build_handnet(cfg.model, *jcli.load_mano_pair("synthetic"))
     train_loader, val_loader = _loaders(factory, loader)
     first = next(iter(val_loader))
@@ -68,14 +74,14 @@ def _jax_fit(exp):
     return variables, metrics
 
 
-def _port_fit(exp, variables):
+def _port_fit(exp, variables, argv):
     from obman_train_tpu_torch.data import factory, loader
     from obman_train_tpu_torch.models import build_handnet
     from obman_train_tpu_torch.train import create_train_state, make_optimizer
     from obman_train_tpu_torch.train.loop import fit
     from obman_train_tpu_torch.weights import state_dict_from_jax
 
-    cfg = pcli.args_to_config(pcli.build_parser().parse_args(ARGV + ["--exp_id", exp]))
+    cfg = pcli.args_to_config(pcli.build_parser().parse_args(argv + ["--exp_id", exp]))
     net = build_handnet(cfg.model, *pcli.load_mano_pair("synthetic"), device="cpu")
     net.load_state_dict(state_dict_from_jax(variables), strict=True)
     train_loader, val_loader = _loaders(factory, loader)
@@ -85,13 +91,13 @@ def _port_fit(exp, variables):
     return metrics
 
 
-@pytest.fixture(scope="module")
-def both(tmp_path_factory):
+def run_both(jax_exp, port_exp, argv=ARGV):
+    """Both packages' ``fit`` metrics, ``(jax, port)``."""
     saved = sys.modules.get("cv2", 0)
     sys.modules["cv2"] = None  # both packages' cv2-free data chain
     try:
-        variables, jm = _jax_fit(str(tmp_path_factory.mktemp("jax")))
-        pm = _port_fit(str(tmp_path_factory.mktemp("port")), variables)
+        variables, jm = _jax_fit(jax_exp, argv)
+        pm = _port_fit(port_exp, variables, argv)
     finally:
         if saved == 0:
             del sys.modules["cv2"]
@@ -100,8 +106,26 @@ def both(tmp_path_factory):
     return jm, pm
 
 
-LOSS_TOL = {1: 1e-4, 2: 5e-3}
-EPE_TOL = {1: 1e-3, 2: 5e-2}
+@pytest.fixture(scope="module")
+def both(tmp_path_factory):
+    return run_both(str(tmp_path_factory.mktemp("jax")), str(tmp_path_factory.mktemp("port")))
+
+
+LOSS_TOL = 1e-4  # relative
+EPE_TOL = 1e-3  # mm
+
+
+def tolerance(key, want):
+    """The allowed ``|port - jax|`` of a logged metric; None for timings."""
+    if key in ("data_time", "batch_time"):
+        return None
+    if key == "auc":
+        return 1e-3
+    if key.startswith("epe"):
+        return EPE_TOL
+    if key == "lr":
+        return 1e-6 * want  # optax's float32 against a float
+    return LOSS_TOL * max(abs(want), 1e-6)
 
 
 def test_fit_matches_jax_epoch_by_epoch(both):
@@ -114,21 +138,37 @@ def test_fit_matches_jax_epoch_by_epoch(both):
             assert set(pm[key][split]) == set(series) == {1, 2}, (key, split)
             for epoch, want in series.items():
                 got = pm[key][split][epoch]
-                if key in ("data_time", "batch_time"):
+                tol = tolerance(key, want)
+                if tol is None:
                     continue
-                if key == "auc":
-                    tol = 1e-3
-                elif key.startswith("epe"):
-                    tol = EPE_TOL[epoch]
-                elif key == "total_loss":
-                    tol = 1e-4 * abs(want)
-                elif key == "lr":
-                    tol = 1e-6 * want  # optax's float32 against a float
-                else:
-                    tol = LOSS_TOL[epoch] * max(abs(want), 1e-6)
                 assert abs(got - want) <= tol, (key, split, epoch, got, want)
                 checked += 1
     assert checked >= 30
     assert pm["regul_scale"]["train"] == {1: 1.0, 2: 1.0}
+    for m in (jm, pm):  # the four updates train
+        assert m["total_loss"]["train"][2] < 0.95 * m["total_loss"]["train"][1]
     # the val pass feeds the evaluator: AUC and EPE are logged
     assert {"auc", "epe_mean", "epe_median"} <= set(pm)
+
+
+if __name__ == "__main__":
+    # python -m tests.test_torch_fit [flags appended to ARGV, e.g. --lr 1e-4]:
+    # each metric's gap against its tolerance, worst first, and the train loss
+    import tempfile
+
+    jax.config.update("jax_platforms", "cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        jm, pm = run_both(tmp + "/jax", tmp + "/port", ARGV + sys.argv[1:])
+    rows = []
+    for key, splits in jm.items():
+        for split, series in splits.items():
+            for epoch, want in series.items():
+                tol = tolerance(key, want)
+                if tol is not None:
+                    got = pm[key][split][epoch]
+                    rows.append((abs(got - want) / tol, key, split, epoch, got, want))
+    for ratio, key, split, epoch, got, want in sorted(rows, reverse=True)[:12]:
+        print(f"{key}/{split}/{epoch}: port {got!r} jax {want!r} |diff| {abs(got - want):.3g}"
+              f" rel {abs(got - want) / max(abs(want), 1e-6):.3g}, {ratio:.3f} of its tolerance")
+    print("train total_loss by epoch: jax", jm["total_loss"]["train"], "port",
+          pm["total_loss"]["train"])
