@@ -33,6 +33,7 @@ from obman_train_tpu_torch.config import ExperimentConfig
 from obman_train_tpu_torch.device import DeviceLike, resolve_device
 from obman_train_tpu_torch.models.handnet import INFER_SPEC, HandNet
 from obman_train_tpu_torch.ops.image import preprocess_frames
+from obman_train_tpu_torch.utils.tracing import span
 
 # what the demo path returns (JAX demo/inference.py:95-99)
 DEMO_KEYS = ("verts", "joints", "objpoints3d", "objtrans", "objscale", "joints2d")
@@ -49,8 +50,9 @@ class ServeNet(nn.Module):
         self.image_size = int(image_size)
 
     def forward(self, frames_u8, sides, flip) -> Dict[str, torch.Tensor]:
-        images = preprocess_frames(frames_u8.to(torch.float32), size=self.image_size,
-                                   flip=flip)
+        with span("serve.preprocess"):
+            images = preprocess_frames(frames_u8.to(torch.float32), size=self.image_size,
+                                       flip=flip)
         _, results, _ = self.net(
             {"images": images, "sides": sides}, INFER_SPEC, no_loss=True,
             force_objects=True, force_hand=True, contact=False,
@@ -97,18 +99,21 @@ class HostCopy:
         self.meta = [(k, tuple(v.shape), _host_dtype(v.dtype)) for k, v in out.items()]
         self.event = None
         if any(v.is_cuda for v in out.values()):
-            packed = torch.cat([v.detach().reshape(-1).to(torch.float32) for v in out.values()])
-            self.host = torch.empty(packed.shape, dtype=torch.float32, pin_memory=True)
-            self.host.copy_(packed, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
+            with span("serve.copy_pack"):
+                packed = torch.cat([v.detach().reshape(-1).to(torch.float32)
+                                    for v in out.values()])
+                self.host = torch.empty(packed.shape, dtype=torch.float32, pin_memory=True)
+                self.host.copy_(packed, non_blocking=True)
+                self.event = torch.cuda.Event()
+                self.event.record()
         else:
             self.out = {k: v.detach().to(_host_dtype(v.dtype)) for k, v in out.items()}
 
     def get(self) -> Dict[str, np.ndarray]:
         if self.event is None:
             return {k: v.numpy() for k, v in self.out.items()}
-        self.event.synchronize()
+        with span("serve.copy_wait"):
+            self.event.synchronize()
         flat, res, i = self.host.numpy(), {}, 0
         for k, shape, dtype in self.meta:
             n = int(np.prod(shape))
@@ -172,7 +177,7 @@ class DemoModel:
     def _infer(self, variables, frames_u8, sides, flip) -> Dict[str, torch.Tensor]:
         """Device tensors in, device tensors out (the outputs of DEMO_KEYS
         that the config computes)."""
-        with torch.inference_mode():
+        with span("serve.infer"), torch.inference_mode():
             if variables is self._variables:  # the live weights: no reparametrisation
                 return self._serve(frames_u8, sides, flip)
             return torch.func.functional_call(self._serve, variables, (frames_u8, sides, flip))

@@ -59,6 +59,7 @@ from obman_train_tpu_torch.ops.chamfer import min_sqdist_to, plane_dtype_for
 from obman_train_tpu_torch.ops.contact import ContainsFn, compute_contact_loss
 from obman_train_tpu_torch.ops.image import batched_color_jitter
 from obman_train_tpu_torch.ops.mesh import meshiou
+from obman_train_tpu_torch.utils.tracing import span
 
 
 @dataclass(frozen=True)
@@ -196,26 +197,27 @@ class HandNet(nn.Module):
         results: Dict[str, Any] = {}
         losses: Dict[str, Any] = {}
 
-        image = batch["images"]
-        if not torch.is_floating_point(image):
-            # uint8 pipeline: x/255 - 0.5 = to_tensor + normalize
-            # (handataset.py:385-407)
-            image = image.to(torch.float32) / 255.0
-            if "aug_factors" in batch:
-                # device-side colour jitter; the host drew the factors
-                image = batched_color_jitter(
-                    image, batch["aug_factors"], batch["aug_order"])
-            image = image - 0.5
-        image = image.permute(0, 3, 1, 2)  # NHWC -> NCHW view
-        # the features in at least float32 (JAX :151, :159); a float64 net
-        # (a reference copy on the CPU) keeps float64
-        features = _at_least_f32(self.base_net(image)[0])
-        if feature_probe is not None:
-            features = features + feature_probe
-        if cfg.atlas.separate_encoder:
-            atlas_infeatures = _at_least_f32(self.atlas_base_net(image)[0])
-            if return_features:
-                results["atlas_features"] = atlas_infeatures
+        with span("handnet.encoder"):
+            image = batch["images"]
+            if not torch.is_floating_point(image):
+                # uint8 pipeline: x/255 - 0.5 = to_tensor + normalize
+                # (handataset.py:385-407)
+                image = image.to(torch.float32) / 255.0
+                if "aug_factors" in batch:
+                    # device-side colour jitter; the host drew the factors
+                    image = batched_color_jitter(
+                        image, batch["aug_factors"], batch["aug_order"])
+                image = image - 0.5
+            image = image.permute(0, 3, 1, 2)  # NHWC -> NCHW view
+            # the features in at least float32 (JAX :151, :159); a float64 net
+            # (a reference copy on the CPU) keeps float64
+            features = _at_least_f32(self.base_net(image)[0])
+            if feature_probe is not None:
+                features = features + feature_probe
+            if cfg.atlas.separate_encoder:
+                atlas_infeatures = _at_least_f32(self.atlas_base_net(image)[0])
+                if return_features:
+                    results["atlas_features"] = atlas_infeatures
         if return_features:
             results["img_features"] = features
 
@@ -255,115 +257,119 @@ class HandNet(nn.Module):
             and cfg.mano_lambdas
         )
         if run_mano:
-            mano_results = self.mano_branch(
-                features,
-                sides=batch["sides"],
-                root_palm=spec.root_palm,
-                use_stereoshape=spec.use_stereoshape,
-                dropout_gen=dropout_gen,
-            )
-            if not no_loss:
-                mano_total, mano_losses = compute_mano_loss(
-                    mano_results, batch, cfg.mano,
-                    has_verts3d=spec.has_verts3d,
-                    has_joints3d=spec.has_joints3d,
-                    has_pcas=spec.has_pcas,
+            with span("handnet.mano"):
+                mano_results = self.mano_branch(
+                    features,
+                    sides=batch["sides"],
+                    root_palm=spec.root_palm,
+                    use_stereoshape=spec.use_stereoshape,
+                    dropout_gen=dropout_gen,
                 )
-                total_loss = (
-                    mano_total if total_loss is None else total_loss + mano_total
-                )
-                losses.update(mano_losses)
-            results.update(mano_results)
-            if cfg.mano.lambda_joints2d:
-                scaletrans = self.scaletrans_branch(features)
-                trans = scaletrans[:, 1:]
-                scale = torch.abs(scaletrans[:, :1])
-                # 100 ~ the scale of 2D joint coordinates (handnet.py:296-301)
-                proj = (
-                    mano_results["joints"][:, :, :2] * scale[:, None, :]
-                    + 100.0 * trans[:, None, :]
-                )
-                results["joints2d"] = proj
-                if not no_loss and spec.has_joints2d:
-                    j2d = mse(proj, batch["joints2d"].to(torch.float32))
-                    losses["joints2d"] = j2d
-                    total_loss = total_loss + cfg.mano.lambda_joints2d * j2d
+                if not no_loss:
+                    mano_total, mano_losses = compute_mano_loss(
+                        mano_results, batch, cfg.mano,
+                        has_verts3d=spec.has_verts3d,
+                        has_joints3d=spec.has_joints3d,
+                        has_pcas=spec.has_pcas,
+                    )
+                    total_loss = (
+                        mano_total if total_loss is None else total_loss + mano_total
+                    )
+                    losses.update(mano_losses)
+                results.update(mano_results)
+                if cfg.mano.lambda_joints2d:
+                    scaletrans = self.scaletrans_branch(features)
+                    trans = scaletrans[:, 1:]
+                    scale = torch.abs(scaletrans[:, :1])
+                    # 100 ~ the scale of 2D joint coordinates (handnet.py:296-301)
+                    proj = (
+                        mano_results["joints"][:, :, :2] * scale[:, None, :]
+                        + 100.0 * trans[:, None, :]
+                    )
+                    results["joints2d"] = proj
+                    if not no_loss and spec.has_joints2d:
+                        j2d = mse(proj, batch["joints2d"].to(torch.float32))
+                        losses["joints2d"] = j2d
+                        total_loss = total_loss + cfg.mano.lambda_joints2d * j2d
 
         # Atlas branch (handnet.py:310-386)
         predict_atlas = (spec.has_objpoints3d or force_objects) and bool(
             cfg.atlas.lambda_atlas or cfg.atlas.final_lambda_atlas
         )
         if predict_atlas:
-            if cfg.atlas.mesh:
-                atlas_features = (
-                    self.atlas_adapter(features) if cfg.atlas.adapt_decoder
-                    else features
-                )
-                atlas_results = self.atlas_branch.forward_inference(
-                    atlas_features,
-                    separate_encoder_features=(
-                        atlas_infeatures if cfg.atlas.separate_encoder else None
-                    ),
-                )
-                atlas_results["objfaces"] = self.ico_faces_np
-            else:
-                if points_gen is None:
-                    points_gen = torch.Generator(device=features.device).manual_seed(0)
-                atlas_results = self.atlas_branch(features, generator=points_gen)
+            with span("handnet.atlas"):
+                if cfg.atlas.mesh:
+                    atlas_features = (
+                        self.atlas_adapter(features) if cfg.atlas.adapt_decoder
+                        else features
+                    )
+                    atlas_results = self.atlas_branch.forward_inference(
+                        atlas_features,
+                        separate_encoder_features=(
+                            atlas_infeatures if cfg.atlas.separate_encoder else None
+                        ),
+                    )
+                    atlas_results["objfaces"] = self.ico_faces_np
+                else:
+                    if points_gen is None:
+                        points_gen = torch.Generator(device=features.device).manual_seed(0)
+                    atlas_results = self.atlas_branch(features, generator=points_gen)
 
             if contact and cfg.need_collisions and mano_results is not None:
-                c = cfg.contact
-                attr_loss, penetr_loss, contact_infos, contact_metrics = compute_contact_loss(
-                    mano_results["verts"],
-                    atlas_results["objpoints3d"],
-                    self.ico_faces,
-                    contact_thresh=c.contact_thresh,
-                    contact_mode=c.contact_mode,
-                    collision_thresh=c.collision_thresh,
-                    collision_mode=c.collision_mode,
-                    contact_target=c.contact_target,
-                    contact_sym=c.contact_sym,
-                    contact_zones=c.contact_zones,
-                    geometry_dtype=cfg.geometry_dtype,
-                    contains=contains,
-                )
-                if not no_loss:
-                    if spec.has_verts3d and spec.has_objpoints3d:
-                        dist_h2o_gt = min_sqdist_to(
-                            batch["verts3d"], batch["objpoints3d"],
-                            plane_dtype=self.plane_dtype,
-                        )
-                        contact_ious, contact_auc = meshiou(
-                            dist_h2o_gt, contact_infos["min_dists"]
-                        )
-                        contact_infos["batch_ious"] = contact_ious
-                        losses["contact_auc"] = contact_auc
-                    contact_loss = (
-                        c.contact_lambda * attr_loss
-                        + c.collision_lambda * penetr_loss
+                with span("handnet.contact"):
+                    c = cfg.contact
+                    attr_loss, penetr_loss, contact_infos, contact_metrics = compute_contact_loss(
+                        mano_results["verts"],
+                        atlas_results["objpoints3d"],
+                        self.ico_faces,
+                        contact_thresh=c.contact_thresh,
+                        contact_mode=c.contact_mode,
+                        collision_thresh=c.collision_thresh,
+                        collision_mode=c.collision_mode,
+                        contact_target=c.contact_target,
+                        contact_sym=c.contact_sym,
+                        contact_zones=c.contact_zones,
+                        geometry_dtype=cfg.geometry_dtype,
+                        contains=contains,
                     )
-                    total_loss = total_loss + contact_loss
-                    losses["penetration_loss"] = penetr_loss
-                    losses["attraction_loss"] = attr_loss
-                    losses["contact_loss"] = contact_loss
-                    losses.update(contact_metrics)
-                results["contact_info"] = contact_infos
+                    if not no_loss:
+                        if spec.has_verts3d and spec.has_objpoints3d:
+                            dist_h2o_gt = min_sqdist_to(
+                                batch["verts3d"], batch["objpoints3d"],
+                                plane_dtype=self.plane_dtype,
+                            )
+                            contact_ious, contact_auc = meshiou(
+                                dist_h2o_gt, contact_infos["min_dists"]
+                            )
+                            contact_infos["batch_ious"] = contact_ious
+                            losses["contact_auc"] = contact_auc
+                        contact_loss = (
+                            c.contact_lambda * attr_loss
+                            + c.collision_lambda * penetr_loss
+                        )
+                        total_loss = total_loss + contact_loss
+                        losses["penetration_loss"] = penetr_loss
+                        losses["attraction_loss"] = attr_loss
+                        losses["contact_loss"] = contact_loss
+                        losses.update(contact_metrics)
+                    results["contact_info"] = contact_infos
 
             results.update(atlas_results)
             if not no_loss:
-                atlas_total, atlas_losses = compute_atlas_loss(
-                    atlas_results, batch, cfg.atlas,
-                    has_objpoints3d=spec.has_objpoints3d,
-                    has_center3d=spec.has_center3d,
-                    obj_faces=self.loss_faces,
-                    laplacian=self.laplacian,
-                    regul_scale=regul_scale,
-                    geometry_dtype=cfg.geometry_dtype,
-                )
-                total_loss = (
-                    atlas_total if total_loss is None else total_loss + atlas_total
-                )
-                losses.update(atlas_losses)
+                with span("handnet.atlas"):
+                    atlas_total, atlas_losses = compute_atlas_loss(
+                        atlas_results, batch, cfg.atlas,
+                        has_objpoints3d=spec.has_objpoints3d,
+                        has_center3d=spec.has_center3d,
+                        obj_faces=self.loss_faces,
+                        laplacian=self.laplacian,
+                        regul_scale=regul_scale,
+                        geometry_dtype=cfg.geometry_dtype,
+                    )
+                    total_loss = (
+                        atlas_total if total_loss is None else total_loss + atlas_total
+                    )
+                    losses.update(atlas_losses)
 
         losses["total_loss"] = total_loss
         return total_loss, results, losses

@@ -62,6 +62,7 @@ from obman_train_tpu_torch.train.steps import (
     make_train_step,
 )
 from obman_train_tpu_torch.utils.logging import Monitor
+from obman_train_tpu_torch.utils.tracing import span
 
 EVAL_JOINT_IDXS = list(range(21))  # joints used for evaluation (epochpass3d.py:37)
 FIGURE_KEYS = EVAL_KEYS + ("contact_info",)
@@ -191,35 +192,36 @@ def epoch_pass(
     def process_host(pending):
         """Host work of a finished step: loss meters (this waits for the
         step's copies), the evaluator feed, the figure, the result dumps."""
-        batch_idx, batch, root, copy = pending
-        losses, results, figure = copy.get()
-        if figure is not None and rank == 0:
-            _draw_figure(display_dir, batch_idx, batch, figure, net.ico_faces_np)
-        for key, v in losses.items():
-            avg_meters.add_loss_value(key, v)
-            if v > 1e5 and key == "total_loss":
-                print(f"loss explosion? {key}={v} at batch {batch_idx}")
-        if "joints" in results and "joints3d" in batch:
-            # GT joints from the host batch: no device round trip
-            evaluator.feed(np.asarray(batch["joints3d"])[:, EVAL_JOINT_IDXS],
-                           results["joints"][:, EVAL_JOINT_IDXS])
-        if not train and save_results_dir is not None and results:
-            os.makedirs(save_results_dir, exist_ok=True)
-            payload = {
-                "batch": {k: np.asarray(v) for k, v in batch.items()
-                          if isinstance(v, np.ndarray)},
-                "results": results,
-                "root": root,
-            }
-            # each rank dumps its own rows (together, every sample once)
-            suffix = f"_rank{rank}" if multiproc else ""
-            with open(os.path.join(save_results_dir, f"batch_{batch_idx:06d}{suffix}.pkl"),
-                      "wb") as f:
-                pickle.dump(payload, f)
+        with span("loop.host"):
+            batch_idx, batch, root, copy = pending
+            losses, results, figure = copy.get()
+            if figure is not None and rank == 0:
+                _draw_figure(display_dir, batch_idx, batch, figure, net.ico_faces_np)
+            for key, v in losses.items():
+                avg_meters.add_loss_value(key, v)
+                if v > 1e5 and key == "total_loss":
+                    print(f"loss explosion? {key}={v} at batch {batch_idx}")
+            if "joints" in results and "joints3d" in batch:
+                # GT joints from the host batch: no device round trip
+                evaluator.feed(np.asarray(batch["joints3d"])[:, EVAL_JOINT_IDXS],
+                               results["joints"][:, EVAL_JOINT_IDXS])
+            if not train and save_results_dir is not None and results:
+                os.makedirs(save_results_dir, exist_ok=True)
+                payload = {
+                    "batch": {k: np.asarray(v) for k, v in batch.items()
+                              if isinstance(v, np.ndarray)},
+                    "results": results,
+                    "root": root,
+                }
+                # each rank dumps its own rows (together, every sample once)
+                suffix = f"_rank{rank}" if multiproc else ""
+                with open(os.path.join(save_results_dir, f"batch_{batch_idx:06d}{suffix}.pkl"),
+                          "wb") as f:
+                    pickle.dump(payload, f)
 
     end = time.time()
     pending = None
-    for batch_idx, batch in enumerate(loader):
+    for batch_idx, batch in enumerate(_fetched(loader)):
         time_meters.add_loss_value("data_time", time.time() - end)
         root = batch.get("root", "wrist")
         device_batch = _to_device(batch, device)
@@ -271,6 +273,17 @@ def epoch_pass(
             "thres": thresholds,
         }
     return state, avg_meters, pck_info
+
+
+def _fetched(loader):
+    """``loader``'s batches, each fetch inside the span ``loop.data_wait``."""
+    batches = iter(loader)
+    while True:
+        with span("loop.data_wait"):
+            batch = next(batches, None)
+        if batch is None:
+            return
+        yield batch
 
 
 def _save_pck_artifacts(cfg: ExperimentConfig, epoch: int, pck_info: Dict,

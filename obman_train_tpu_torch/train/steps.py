@@ -53,6 +53,7 @@ from obman_train_tpu_torch.device import DeviceLike, resolve_device
 from obman_train_tpu_torch.models.handnet import BatchSpec, HandNet
 from obman_train_tpu_torch.models.resnet import _FlaxTrainBN
 from obman_train_tpu_torch.parallel import mesh as parallel
+from obman_train_tpu_torch.utils.tracing import span
 
 EVAL_KEYS = ("verts", "joints", "objpoints3d", "objtrans", "objscale",
              "joints2d", "center3d")
@@ -364,21 +365,24 @@ def _build_train_step(net, opt, spec, train_bn, accum_steps, device, return_join
     random_cloud = not net.cfg.atlas.mesh
 
     def forward_backward(batch, regul_scale, gens):
-        total, results, losses = net(batch, spec, regul_scale=regul_scale,
-                                     dropout_gen=gens[0], points_gen=gens[1])
-        total.backward()
+        with span("train.forward"):
+            total, results, losses = net(batch, spec, regul_scale=regul_scale,
+                                         dropout_gen=gens[0], points_gen=gens[1])
+        with span("train.backward"):
+            total.backward()
         joints = results["joints"].detach() if return_joints else None
         return {k: v.detach() for k, v in losses.items()}, joints
 
     def step_fn(state: TrainState, batch: Dict):
-        if state.net is not net or state.optimizer is not opt:
-            raise ValueError("the state holds another net or optimizer than this step")
-        # frozen BN: running stats, no dropout; unfrozen: the JAX train=True
-        net.train(train_bn)
-        try:
-            return update(state, batch)
-        finally:
-            net.eval()
+        with span("train.step", str(state.step)):
+            if state.net is not net or state.optimizer is not opt:
+                raise ValueError("the state holds another net or optimizer than this step")
+            # frozen BN: running stats, no dropout; unfrozen: the JAX train=True
+            net.train(train_bn)
+            try:
+                return update(state, batch)
+            finally:
+                net.eval()
 
     def gen_for(state, micro):
         return (
@@ -391,12 +395,13 @@ def _build_train_step(net, opt, spec, train_bn, accum_steps, device, return_join
         net.zero_grad(set_to_none=True)
         with parallel.data_parallel(dp):
             losses, joints = accumulate(state, batch)
-        if dp is not None:
-            losses = rank_mean(_optimizer_params(opt), losses)
-        lr = state.lr_fn(state.step)
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
+        with span("train.optimizer"):
+            if dp is not None:
+                losses = rank_mean(_optimizer_params(opt), losses)
+            lr = state.lr_fn(state.step)
+            for group in opt.param_groups:
+                group["lr"] = lr
+            opt.step()
         state.step += 1
         if return_joints:
             return state, losses, joints
