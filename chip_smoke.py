@@ -73,11 +73,14 @@ each fatal on failure:
    (hand_object, the headline config) streaming 128 camera frames of
    480x640 uint8 on the device, duplicated and flipped into one B=256
    forward: source frames/s with TF32 off and at PyTorch's default, a
-   per-layer breakdown, the card's preprocessing against the CPU port's
-   (1e-5); (b) phase 7's contact-config experiment reloaded into
-   ``DemoModel``: ``predict_dual`` equal bit for bit to the full HandNet
-   forward on the same preprocessed batch, and no kernel launch on the
-   demo path; (c) ``export_model`` for cuda with a symbolic batch, served at
+   per-layer breakdown (``encoder`` the served, folded encoder,
+   ``encoder_unfolded`` ``ResNet.forward``), the card's preprocessing
+   against the CPU port's (1e-5); (b) phase 7's contact-config experiment
+   reloaded into ``DemoModel``: ``predict_dual`` equal bit for bit to the
+   full HandNet forward with the served encoder on the same preprocessed
+   batch, that encoder's features within 1e-5 of ``ResNet.forward``'s
+   (largest gap over the largest magnitude, TF32 off), and no kernel
+   launch on the demo path; (c) ``export_model`` for cuda with a symbolic batch, served at
    B=1 and B=256 by ``load_exported`` in a fresh process that cannot import
    the port, against the live model (rtol 1e-5, atol 2e-3); (d) cold start
    of a live ``DemoModel`` and of an ``ExportedModel``, each in a fresh
@@ -1562,10 +1565,11 @@ def _serving_stream(dev):
             dup = torch.cat([cam, cam])
             images = preprocess_frames(dup.to(torch.float32), size, flip=flip)
             nchw = images.permute(0, 3, 1, 2)
-            feats, _ = net.base_net(nchw)
+            feats, _ = model._serve.encode(nchw)
             stages = {
                 "preprocess": lambda: preprocess_frames(dup.to(torch.float32), size, flip=flip),
-                "encoder": lambda: net.base_net(nchw),
+                "encoder": lambda: model._serve.encode(nchw),
+                "encoder_unfolded": lambda: net.base_net(nchw),
                 "mano_both_sides": lambda: net.mano_branch(feats, sides),
                 "atlas_decoder": lambda: net.atlas_branch.forward_inference(feats),
                 "demo_forward": step,
@@ -1584,7 +1588,8 @@ def _serving_stream(dev):
 
 def _serving_reload(exp, dev):
     """(b) phase 7's contact-config experiment in DemoModel: the demo path
-    equal to the full HandNet forward bit for bit, and no kernel launch."""
+    equal to the full HandNet forward with the served encoder bit for bit,
+    that encoder against ``ResNet.forward``, and no kernel launch."""
     import numpy as np
     import torch
 
@@ -1619,19 +1624,31 @@ def _serving_reload(exp, dev):
                                    flip=torch.tensor([False, True], device=dev))
         _, full, _ = model.net({"images": images,
                                 "sides": torch.tensor([1, 0], dtype=torch.int32, device=dev)},
-                               INFER_SPEC, no_loss=True, force_hand=True, force_objects=True)
+                               INFER_SPEC, no_loss=True, force_hand=True, force_objects=True,
+                               encoder=model._serve.encode)
+        nchw = images.permute(0, 3, 1, 2)
+        served, _ = model._serve.encode(nchw)
+        unfolded, _ = model.net.base_net(nchw)
     torch.cuda.synchronize()
     full_launches = {k: v for k, v in LAUNCHES.items() if v}
+    if model._serve._fold is None:
+        fail("the reloaded float32 model on the card did not take the folded encoder")
     if "contact_info" not in full or full_launches.get("raytri_count") != 1:
         fail(f"the full forward ran no contact block ({full_launches})")
     unequal = [k for k in dual if not np.array_equal(dual[k], full[k].cpu().numpy())]
     if unequal:
         fail(f"predict_dual differs from the full HandNet forward at {unequal}")
+    fold_gap = float((served - unfolded).abs().max() / unfolded.abs().max())
+    if not fold_gap < 1e-5:
+        fail(f"the folded encoder's features differ from ResNet.forward's by {fold_gap:.3e} "
+             f"of their largest magnitude (limit 1e-5)")
     log(f"serving (b) DemoModel from phase 7's contact experiment (epoch {model.epoch}): "
         f"predict_dual and a B={B_FULL} demo forward launched {demo_launches or 'no kernel'}; "
-        f"predict_dual equal bit for bit to the full forward (which launched {full_launches})")
+        f"predict_dual equal bit for bit to the full forward with the served encoder (which "
+        f"launched {full_launches}); folded encoder vs ResNet.forward {fold_gap:.3e} of the "
+        f"largest feature (limit 1e-5)")
     return model, {"demo_path_launches": demo_launches, "full_forward_launches": full_launches,
-                   "bitwise_equal_keys": sorted(dual)}
+                   "bitwise_equal_keys": sorted(dual), "fold_gap_vs_resnet_forward": fold_gap}
 
 
 def _child(code, label, timeout=300):

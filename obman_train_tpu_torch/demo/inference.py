@@ -31,6 +31,7 @@ from torch import nn
 
 from obman_train_tpu_torch.config import ExperimentConfig
 from obman_train_tpu_torch.device import DeviceLike, resolve_device
+from obman_train_tpu_torch.models import resnet_fold
 from obman_train_tpu_torch.models.handnet import INFER_SPEC, HandNet
 from obman_train_tpu_torch.ops.image import preprocess_frames
 from obman_train_tpu_torch.utils.tracing import span
@@ -42,12 +43,16 @@ DEMO_KEYS = ("verts", "joints", "objpoints3d", "objtrans", "objscale", "joints2d
 class ServeNet(nn.Module):
     """``(frames_u8 (B, H, W, 3), sides (B,), flip (B,)) -> outputs``:
     preprocessing, encoder, MANO, atlas (+ trans/scale, + ``joints2d``
-    where the config has them). The program that ``demo.export`` traces."""
+    where the config has them). The program that ``demo.export`` traces.
+
+    On the card the encoder runs with its frozen BatchNorms folded into
+    its convolutions (:meth:`encode`)."""
 
     def __init__(self, net: HandNet, image_size: int):
         super().__init__()
         self.net = net
         self.image_size = int(image_size)
+        self._fold = None  # (sources, their keys, resnet_fold.Folded) of the last fold
 
     def forward(self, frames_u8, sides, flip) -> Dict[str, torch.Tensor]:
         with span("serve.preprocess"):
@@ -55,9 +60,40 @@ class ServeNet(nn.Module):
                                        flip=flip)
         _, results, _ = self.net(
             {"images": images, "sides": sides}, INFER_SPEC, no_loss=True,
-            force_objects=True, force_hand=True, contact=False,
+            force_objects=True, force_hand=True, contact=False, encoder=self.encode,
         )
         return {k: results[k] for k in DEMO_KEYS if k in results}
+
+    def encode(self, image: torch.Tensor):
+        """``base_net``'s ``(features, None)`` of the NCHW images. Folded and
+        run by cuDNN's fused convolution epilogue (``models/resnet_fold``)
+        when the images are a CUDA float32 tensor, the encoder computes in
+        its parameters' dtype and is in ``eval()``, autograd does not record
+        and nothing is being compiled (``demo.export``'s trace keeps
+        ``ResNet.forward``); else ``ResNet.forward``."""
+        base = self.net.base_net
+        if not (image.is_cuda and image.dtype == torch.float32
+                and base.conv1.compute_dtype is None and not base.training
+                and not torch.is_grad_enabled() and not torch.compiler.is_compiling()):
+            return base(image)
+        return resnet_fold.features(self._folded(base), image)
+
+    def _folded(self, base) -> "resnet_fold.Folded":
+        """The fold of ``base``'s tensors as they are now, made again only
+        when one of them is another tensor (a checkpoint assigned,
+        ``functional_call``'s variables), was written in place (its
+        version: ``load_state_dict``, an optimizer step) or holds other
+        memory (a ``.data`` swap keeps the version). An inference tensor
+        has no version: a source that is one folds at every call. Made
+        outside inference mode, so the cache holds no inference tensor."""
+        src = resnet_fold.sources(base)
+        keys = [None if t.is_inference() else (t._version, t.data_ptr()) for t in src]
+        cached = self._fold
+        if (cached is None or None in keys or cached[1] != keys
+                or any(a is not b for a, b in zip(cached[0], src))):
+            with span("serve.fold"), torch.inference_mode(False), torch.no_grad():
+                self._fold = (src, keys, resnet_fold.fold(base))
+        return self._fold[2]
 
 
 def to_device(device: torch.device, *arrays: np.ndarray):

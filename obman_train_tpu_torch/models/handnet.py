@@ -35,7 +35,7 @@ icosphere template (JAX :246-260), its points drawn from ``points_gen``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -174,6 +174,7 @@ class HandNet(nn.Module):
         dropout_gen: Optional[torch.Generator] = None,
         points_gen: Optional[torch.Generator] = None,
         feature_probe: Optional[torch.Tensor] = None,
+        encoder: Optional[Callable[[torch.Tensor], Tuple[torch.Tensor, Any]]] = None,
     ) -> Tuple[Optional[torch.Tensor], Dict[str, Any], Dict[str, Any]]:
         """Returns ``(total_loss, results, losses)`` like the JAX
         ``HandNet.__call__`` with ``train=False``. ``regul_scale``
@@ -189,7 +190,9 @@ class HandNet(nn.Module):
         points of seed 0, as the JAX eval step's ``PRNGKey(0)``.
         ``feature_probe`` (B, feature size) is added to the image features:
         a zero probe whose gradient is the features' gradient
-        (``train/debug.py``, JAX :152-156)."""
+        (``train/debug.py``, JAX :152-156). ``encoder`` replaces the call
+        of ``base_net`` on the NCHW images (the serving path's folded
+        encoder, ``demo.inference.ServeNet``)."""
         if not contact and not no_loss:
             raise ValueError("contact=False needs no_loss=True: the losses read the block")
         cfg = self.cfg
@@ -211,7 +214,7 @@ class HandNet(nn.Module):
             image = image.permute(0, 3, 1, 2)  # NHWC -> NCHW view
             # the features in at least float32 (JAX :151, :159); a float64 net
             # (a reference copy on the CPU) keeps float64
-            features = _at_least_f32(self.base_net(image)[0])
+            features = _at_least_f32((encoder or self.base_net)(image)[0])
             if feature_probe is not None:
                 features = features + feature_probe
             if cfg.atlas.separate_encoder:
