@@ -1565,10 +1565,10 @@ def _serving_stream(dev):
             dup = torch.cat([cam, cam])
             images = preprocess_frames(dup.to(torch.float32), size, flip=flip)
             nchw = images.permute(0, 3, 1, 2)
-            feats, _ = model._serve.encode(nchw)
+            feats, _ = model._serve.encode(net.base_net, nchw)
             stages = {
                 "preprocess": lambda: preprocess_frames(dup.to(torch.float32), size, flip=flip),
-                "encoder": lambda: model._serve.encode(nchw),
+                "encoder": lambda: model._serve.encode(net.base_net, nchw),
                 "encoder_unfolded": lambda: net.base_net(nchw),
                 "mano_both_sides": lambda: net.mano_branch(feats, sides),
                 "atlas_decoder": lambda: net.atlas_branch.forward_inference(feats),
@@ -1627,11 +1627,11 @@ def _serving_reload(exp, dev):
                                INFER_SPEC, no_loss=True, force_hand=True, force_objects=True,
                                encoder=model._serve.encode)
         nchw = images.permute(0, 3, 1, 2)
-        served, _ = model._serve.encode(nchw)
+        served, _ = model._serve.encode(model.net.base_net, nchw)
         unfolded, _ = model.net.base_net(nchw)
     torch.cuda.synchronize()
     full_launches = {k: v for k, v in LAUNCHES.items() if v}
-    if model._serve._fold is None:
+    if model.net.base_net not in model._serve._folds:
         fail("the reloaded float32 model on the card did not take the folded encoder")
     if "contact_info" not in full or full_launches.get("raytri_count") != 1:
         fail(f"the full forward ran no contact block ({full_launches})")

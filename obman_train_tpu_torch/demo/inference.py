@@ -45,14 +45,16 @@ class ServeNet(nn.Module):
     preprocessing, encoder, MANO, atlas (+ trans/scale, + ``joints2d``
     where the config has them). The program that ``demo.export`` traces.
 
-    On the card the encoder runs with its frozen BatchNorms folded into
-    its convolutions (:meth:`encode`)."""
+    On the card each encoder (``base_net``, and ``atlas_base_net`` where
+    the config has a separate object encoder) runs with its frozen
+    BatchNorms folded into its convolutions (:meth:`encode`)."""
 
     def __init__(self, net: HandNet, image_size: int):
         super().__init__()
         self.net = net
         self.image_size = int(image_size)
-        self._fold = None  # (sources, their keys, resnet_fold.Folded) of the last fold
+        # encoder module -> (sources, their keys, resnet_fold.Folded) of its last fold
+        self._folds: Dict[nn.Module, tuple] = {}
 
     def forward(self, frames_u8, sides, flip) -> Dict[str, torch.Tensor]:
         with span("serve.preprocess"):
@@ -64,36 +66,38 @@ class ServeNet(nn.Module):
         )
         return {k: results[k] for k in DEMO_KEYS if k in results}
 
-    def encode(self, image: torch.Tensor):
-        """``base_net``'s ``(features, None)`` of the NCHW images. Folded and
-        run by cuDNN's fused convolution epilogue (``models/resnet_fold``)
-        when the images are a CUDA float32 tensor, the encoder computes in
-        its parameters' dtype and is in ``eval()``, autograd does not record
-        and nothing is being compiled (``demo.export``'s trace keeps
-        ``ResNet.forward``); else ``ResNet.forward``."""
-        base = self.net.base_net
+    def encode(self, net: nn.Module, image: torch.Tensor):
+        """The encoder ``net``'s ``(features, None)`` of the NCHW images
+        (``HandNet.forward``'s ``encoder`` hook). Folded and run by cuDNN's
+        fused convolution epilogue (``models/resnet_fold``) when the images
+        are a CUDA float32 tensor, the encoder computes in its parameters'
+        dtype and is in ``eval()``, autograd does not record and nothing is
+        being compiled (``demo.export``'s trace keeps ``ResNet.forward``);
+        else ``ResNet.forward``."""
         if not (image.is_cuda and image.dtype == torch.float32
-                and base.conv1.compute_dtype is None and not base.training
+                and net.conv1.compute_dtype is None and not net.training
                 and not torch.is_grad_enabled() and not torch.compiler.is_compiling()):
-            return base(image)
-        return resnet_fold.features(self._folded(base), image)
+            return net(image)
+        return resnet_fold.features(self._folded(net), image)
 
-    def _folded(self, base) -> "resnet_fold.Folded":
-        """The fold of ``base``'s tensors as they are now, made again only
-        when one of them is another tensor (a checkpoint assigned,
-        ``functional_call``'s variables), was written in place (its
-        version: ``load_state_dict``, an optimizer step) or holds other
-        memory (a ``.data`` swap keeps the version). An inference tensor
-        has no version: a source that is one folds at every call. Made
-        outside inference mode, so the cache holds no inference tensor."""
-        src = resnet_fold.sources(base)
+    def _folded(self, net: nn.Module) -> "resnet_fold.Folded":
+        """The fold of ``net``'s tensors as they are now, kept per encoder
+        and made again only when one of its tensors is another tensor (a
+        checkpoint assigned, ``functional_call``'s variables), was written
+        in place (its version: ``load_state_dict``, an optimizer step) or
+        holds other memory (a ``.data`` swap keeps the version). An
+        inference tensor has no version: a source that is one folds at
+        every call. Made outside inference mode, so the cache holds no
+        inference tensor. The ``serve.fold`` span names the encoder."""
+        src = resnet_fold.sources(net)
         keys = [None if t.is_inference() else (t._version, t.data_ptr()) for t in src]
-        cached = self._fold
+        cached = self._folds.get(net)
         if (cached is None or None in keys or cached[1] != keys
                 or any(a is not b for a, b in zip(cached[0], src))):
-            with span("serve.fold"), torch.inference_mode(False), torch.no_grad():
-                self._fold = (src, keys, resnet_fold.fold(base))
-        return self._fold[2]
+            name = next((n for n, m in self.net.named_children() if m is net), None)
+            with span("serve.fold", name), torch.inference_mode(False), torch.no_grad():
+                cached = self._folds[net] = (src, keys, resnet_fold.fold(net))
+        return cached[2]
 
 
 def to_device(device: torch.device, *arrays: np.ndarray):

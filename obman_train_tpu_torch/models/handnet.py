@@ -174,7 +174,7 @@ class HandNet(nn.Module):
         dropout_gen: Optional[torch.Generator] = None,
         points_gen: Optional[torch.Generator] = None,
         feature_probe: Optional[torch.Tensor] = None,
-        encoder: Optional[Callable[[torch.Tensor], Tuple[torch.Tensor, Any]]] = None,
+        encoder: Optional[Callable[[nn.Module, torch.Tensor], Tuple[torch.Tensor, Any]]] = None,
     ) -> Tuple[Optional[torch.Tensor], Dict[str, Any], Dict[str, Any]]:
         """Returns ``(total_loss, results, losses)`` like the JAX
         ``HandNet.__call__`` with ``train=False``. ``regul_scale``
@@ -190,9 +190,10 @@ class HandNet(nn.Module):
         points of seed 0, as the JAX eval step's ``PRNGKey(0)``.
         ``feature_probe`` (B, feature size) is added to the image features:
         a zero probe whose gradient is the features' gradient
-        (``train/debug.py``, JAX :152-156). ``encoder`` replaces the call
-        of ``base_net`` on the NCHW images (the serving path's folded
-        encoder, ``demo.inference.ServeNet``)."""
+        (``train/debug.py``, JAX :152-156). ``encoder(net, images)`` replaces
+        the call ``net(images)`` of each encoder on the NCHW images:
+        ``base_net``, and ``atlas_base_net`` where ``atlas.separate_encoder``
+        (the serving path's folded encoders, ``demo.inference.ServeNet``)."""
         if not contact and not no_loss:
             raise ValueError("contact=False needs no_loss=True: the losses read the block")
         cfg = self.cfg
@@ -214,11 +215,13 @@ class HandNet(nn.Module):
             image = image.permute(0, 3, 1, 2)  # NHWC -> NCHW view
             # the features in at least float32 (JAX :151, :159); a float64 net
             # (a reference copy on the CPU) keeps float64
-            features = _at_least_f32((encoder or self.base_net)(image)[0])
+            encode = encoder or _call_encoder
+            features = _at_least_f32(encode(self.base_net, image)[0])
             if feature_probe is not None:
                 features = features + feature_probe
             if cfg.atlas.separate_encoder:
-                atlas_infeatures = _at_least_f32(self.atlas_base_net(image)[0])
+                with span("handnet.atlas_encoder"):
+                    atlas_infeatures = _at_least_f32(encode(self.atlas_base_net, image)[0])
                 if return_features:
                     results["atlas_features"] = atlas_infeatures
         if return_features:
@@ -376,6 +379,10 @@ class HandNet(nn.Module):
 
         losses["total_loss"] = total_loss
         return total_loss, results, losses
+
+
+def _call_encoder(net: nn.Module, image: torch.Tensor):
+    return net(image)
 
 
 def _at_least_f32(x: torch.Tensor) -> torch.Tensor:

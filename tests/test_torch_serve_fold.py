@@ -89,7 +89,7 @@ class _Encoder(nn.Module):
         self.serve = serve
 
     def forward(self, image):
-        return self.serve.encode(image)
+        return self.serve.encode(self.serve.net.base_net, image)
 
 
 class _Net(nn.Module):
@@ -127,7 +127,7 @@ def test_the_card_takes_the_fold(folds):
     serve = _serve()
     x = _images(3)
     with torch.inference_mode():
-        got, _ = serve.encode(x.as_subclass(_OnCard))
+        got, _ = serve.encode(serve.net.base_net, x.as_subclass(_OnCard))
         want, _ = serve.net.base_net(x)
     assert folds == {"fold": 1, "fused": 1}
     torch.testing.assert_close(got.as_subclass(torch.Tensor), want, rtol=1e-4, atol=1e-5)
@@ -150,7 +150,7 @@ def test_other_routes_take_resnet_forward(case, monkeypatch):
     if case == "compiling":
         monkeypatch.setattr(torch.compiler, "is_compiling", lambda: True)
     with torch.set_grad_enabled(case == "grad"):
-        got, _ = serve.encode(x)
+        got, _ = serve.encode(serve.net.base_net, x)
         want, _ = serve.net.base_net(x)
     assert torch.equal(got.as_subclass(torch.Tensor), want.as_subclass(torch.Tensor))
 
@@ -158,7 +158,7 @@ def test_other_routes_take_resnet_forward(case, monkeypatch):
 def _encode(serve, x, variables=None):
     with torch.inference_mode():
         if variables is None:
-            return serve.encode(x)[0]
+            return serve.encode(serve.net.base_net, x)[0]
         return torch.func.functional_call(_Encoder(serve), variables, (x,))[0]
 
 
@@ -251,7 +251,7 @@ def test_fused_outputs_match_resnet_forward_on_the_card(cuda_card, resnet_versio
     model = _card_model(256, resnet_version)
     frames, sides, flip = _card_inputs(8, 256)
     got = model._infer(model._variables, frames, sides, flip)
-    assert model._serve._fold is not None  # the fused route ran
+    assert list(model._serve._folds) == [model.net.base_net]  # the fused route ran
     with torch.enable_grad():  # autograd records: ResNet.forward
         want = model._serve(frames, sides, flip)
     assert set(got) == set(want)
