@@ -7,6 +7,8 @@ matmul against the dense cotangent Laplacian of
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from obman_train_tpu_torch.device import full_fp32
@@ -58,6 +60,18 @@ def thresh_iou(gt_dists: torch.Tensor, pred_dists: torch.Tensor, thresh) -> torc
                        torch.zeros_like(union))
 
 
+# A tensor built on the device from Python data is a copy from pageable host
+# memory that waits for the device to drain, so the abscissae are built once
+# per (values, dtype, device) and kept. They are made outside inference mode
+# even when the first call comes from inside it: an inference tensor cannot
+# enter a graph that autograd records, so a cache filled by an evaluation
+# would break a later training step.
+@functools.lru_cache(maxsize=8)
+def _abscissae(threshs: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):
+        return torch.tensor(threshs, dtype=dtype, device=device)
+
+
 def meshiou(gt_dists: torch.Tensor, pred_dists: torch.Tensor,
             threshs=tuple(range(1, 11))):
     """Contact IoU curve and AUC (reference: contactloss.py:35-47).
@@ -67,6 +81,7 @@ def meshiou(gt_dists: torch.Tensor, pred_dists: torch.Tensor,
     averaged across the batch.
     """
     ious = torch.stack([thresh_iou(gt_dists, pred_dists, t) for t in threshs], dim=0)
-    xs = torch.tensor(threshs, dtype=ious.dtype, device=ious.device)
+    xs = _abscissae(tuple(threshs), ious.dtype, ious.device)
     auc_per_example = torch.trapezoid(ious, x=xs, dim=0)
     return torch.mean(ious, dim=1), torch.mean(auc_per_example)
+

@@ -23,15 +23,17 @@ import ctypes
 
 import torch
 
-from obman_train_tpu_torch.ops.inside import RAY_DIRECTION, TOL
+from obman_train_tpu_torch.ops.inside import TOL, direction
 from obman_train_tpu_torch.ops.kernels import LAUNCHES
 from obman_train_tpu_torch.ops.nnsqdist import H100_SMS, _sms
 
 KERNEL = "raytri_count"
 # Floats per triangle in the table: four float4 rows (see raytri.cu).
 TABLE_WIDTH = 16
-# The ray direction and tolerance as the float32 values both versions use.
-_DIR_F32 = tuple(torch.tensor(RAY_DIRECTION, dtype=torch.float32).tolist())
+# The ray direction and tolerance as the float32 values both versions use,
+# held as Python floats: a float32 tensor times one of them rounds as it
+# would times a float32 tensor, with no host-to-device copy on the way.
+_DIR_F32 = direction(torch.float32)
 _TOL_F32 = torch.tensor(TOL, dtype=torch.float32).item()
 # (point, triangle) pairs per step of the plain version: its temporaries
 # stay ~64 MB each (chunked over the batch, and over the points of a
@@ -63,7 +65,7 @@ def triangle_table(triangles: torch.Tensor) -> torch.Tensor:
     as the Pallas wrapper (raytri_kernel.py:87-89) and the JAX inside test
     compute them for bf16 object vertices.
     """
-    d0, d1, d2 = _direction(triangles.device)
+    d0, d1, d2 = _DIR_F32
     v0 = triangles[:, :, 0].to(torch.float32)
     e1 = (triangles[:, :, 1] - triangles[:, :, 0]).to(torch.float32)
     e2 = (triangles[:, :, 2] - triangles[:, :, 0]).to(torch.float32)
@@ -85,18 +87,12 @@ def triangle_table(triangles: torch.Tensor) -> torch.Tensor:
     ).contiguous()
 
 
-def _direction(device: torch.device):
-    d = torch.tensor(RAY_DIRECTION, dtype=torch.float32, device=device)
-    return d[0], d[1], d[2]
-
-
 def raytri_count_plain(points: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch hit counts (B, P) int32, the kernel's arithmetic in
     the kernel's order (one rounding per operation, no FMA)."""
     B, P, _ = points.shape
     T = table.shape[1]
-    d0, d1, d2 = _direction(points.device)
-    tol = torch.tensor(TOL, dtype=torch.float32, device=points.device)
+    d0, d1, d2 = _DIR_F32
     counts = torch.empty((B, P), dtype=torch.int32, device=points.device)
     rows = max(1, _PLAIN_ELEMS // max(1, T))
     step = max(1, rows // max(1, P))
@@ -115,7 +111,7 @@ def raytri_count_plain(points: torch.Tensor, table: torch.Tensor) -> torch.Tenso
         qz = tx * e1y - ty * e1x
         v = (d0 * qx + d1 * qy + d2 * qz) * invdet
         t = (tb[..., 8] * qx + tb[..., 9] * qy + tb[..., 10] * qz) * invdet
-        hit = (u > 0) & (u < 1) & (v > 0) & ((u + v) < 1) & (t >= tol)
+        hit = (u > 0) & (u < 1) & (v > 0) & ((u + v) < 1) & (t >= _TOL_F32)
         hit = hit & (tb[..., 7] > 0)
         counts[b0 : b0 + step, p0 : p0 + rows] = torch.sum(hit, dim=-1, dtype=torch.int32)
     return counts
