@@ -12,7 +12,7 @@ hermetically. For the same ``seed`` the files are byte for byte the JAX
 package's (the same draws, the same cv2 encoders).
 
 Used by ``tools/torch_data_pipeline.py``'s real-decode stage, by
-``chip_smoke.py`` and by the adapter tests. Images are smooth
+tests/test_torch_cuda_datasets.py on the card and by the adapter tests. Images are smooth
 low-frequency fields + mild noise so JPEG decode cost resembles
 photographic content (pure noise both compresses and decodes
 unrealistically).

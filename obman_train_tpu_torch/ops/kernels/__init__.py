@@ -2,8 +2,8 @@
 
 Each kernel wrapper adds one to ``LAUNCHES[name]`` where it launches its
 kernel, and nowhere else, so a run can show that its main path went through
-the kernels (``chip_smoke.py`` clears the counts, drives the path, and reads
-them back).
+the kernels (the ``cuda`` tests, e.g. tests/test_torch_cuda.py, clear the
+counts, drive the path, and read them back).
 """
 
 from __future__ import annotations

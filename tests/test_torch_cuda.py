@@ -3,8 +3,14 @@ mode). They skip without one. This file imports no JAX, so it also runs on
 a machine without it, where tests/conftest.py (which imports JAX) must be
 left out:
 
-    python3 -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+    python3 -m pytest --noconftest -m cuda tests/test_torch_cuda*.py -q
+
+The kernels' exactness rows use the scenes of tools/kernel_ab.py, which
+times the same rows.
 """
+
+import importlib.util
+import os
 
 import numpy as np
 import pytest
@@ -14,8 +20,9 @@ from obman_train_tpu_torch import train
 from obman_train_tpu_torch.assets import icosphere, synthetic_mano_assets
 from obman_train_tpu_torch.config import AtlasConfig, ContactConfig, ModelConfig, TrainConfig
 from obman_train_tpu_torch.infer import make_infer
-from obman_train_tpu_torch.models import BatchSpec, build_handnet
-from obman_train_tpu_torch.ops import chamfer, compute_contact_loss, nnsqdist, raytri
+from obman_train_tpu_torch.models import INFER_SPEC, BatchSpec, build_handnet
+from obman_train_tpu_torch.ops import (chamfer, compute_contact_loss,
+                                       mesh_contains_points_plain, nnsqdist, raytri)
 from obman_train_tpu_torch.ops.kernels import LAUNCHES
 from obman_train_tpu_torch.weights import init_weights
 
@@ -25,6 +32,26 @@ CONTACT = ModelConfig(
     atlas=AtlasConfig(predict_trans=True, predict_scale=True),
     contact=ContactConfig(contact_lambda=0.167, collision_lambda=0.167),
 )
+HAND_OBJECT = ModelConfig(atlas=CONTACT.atlas)
+# a contact-config train step: K1 once; two argmin sweeps for each of the
+# two atlas Chamfer calls and the contact block; one min-only sweep for
+# min_sqdist_to. An eval forward with losses: K1, the contact block's two
+# argmin sweeps, two min sweeps for each gradient-free Chamfer loss and one
+# for min_sqdist_to
+TRAIN_LAUNCHES = {raytri.KERNEL: 1, nnsqdist.KERNEL_ARGMIN: 6, nnsqdist.KERNEL_MIN: 1}
+EVAL_LAUNCHES = {raytri.KERNEL: 1, nnsqdist.KERNEL_ARGMIN: 2, nnsqdist.KERNEL_MIN: 5}
+TRAIN_LOSS_KEYS = {
+    "mano_verts3d", "mano_joints3d", "mano_total_loss", "contact_auc",
+    "penetration_loss", "attraction_loss", "contact_loss", "max_penetr",
+    "mean_penetr", "atlas_trans3d", "atlas_scale3d", "final_chamfer_loss",
+    "atlas_objpoints3d", "total_loss",
+}
+
+_spec = importlib.util.spec_from_file_location(
+    "kernel_ab", os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                              "tools", "kernel_ab.py"))
+kernel_ab = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(kernel_ab)
 
 
 @pytest.fixture
@@ -56,7 +83,7 @@ def _scene(seed, B, P, n_tris=None):
 # contact forward of one sample and of 32)
 _RAGGED = [(2, p, t) for p in (1, 31, 33, 129, 778)
            for t in (1, raytri.CHUNK - 1, raytri.CHUNK + 1, 1280)]
-_SPLIT = [(1, 4096, 1280), (1, 20000, 1280), (1, 778, 1280), (32, 778, 1280)]
+_SPLIT = [(1, 4096, 1280), (1, 20000, 1280), (2, 129, 1280), (1, 778, 1280), (32, 778, 1280)]
 
 
 @pytest.mark.parametrize("B,P,n_tris",
@@ -74,6 +101,26 @@ def test_raytri_kernel_equals_plain(cuda, B, P, n_tris):
     if n_tris is None:
         ext = got % 2 == 0
         assert ext.any() and (~ext).any()
+
+
+@pytest.mark.parametrize("row", ["raytri_count", "raytri_count_voxel_hand",
+                                 "raytri_count_voxel_object"])
+def test_raytri_kernel_equals_plain_at_the_table_rows(cuda, row):
+    """K1 at the kernel table's rows (tools/kernel_ab.py's scenes): the
+    contact block at 256x778x1280, and the voxel grids of ``intersect_vox``
+    in one launch each, 1x32768x1538 (a hand) and 1x4096x1280 (an object):
+    one launch, bitwise the plain version's, interior and exterior points."""
+    if row == "raytri_count":
+        pts, tris = kernel_ab.raytri_scene(256, 778, 1280, seed=0)
+    else:
+        pts, tris = next((p, t) for n, p, t in kernel_ab.voxel_scenes() if n == row)
+    table = raytri.triangle_table(tris)
+    before = LAUNCHES[raytri.KERNEL]
+    got = raytri.raytri_count(pts, table)
+    torch.cuda.synchronize()
+    assert LAUNCHES[raytri.KERNEL] == before + 1
+    assert torch.equal(got, raytri.raytri_count_plain(pts, table))
+    assert (got % 2 == 1).any() and (got % 2 == 0).any()
 
 
 def test_default_device_is_cuda(cuda):
@@ -116,6 +163,42 @@ def test_slice_on_cuda_matches_cpu_port(cuda):
                                rtol=1e-4, atol=1e-2)
 
 
+def _frames(B, S, seed, device):
+    gen = torch.Generator().manual_seed(seed)
+    frames = torch.randint(0, 256, (B, S, S, 3), generator=gen, dtype=torch.uint8)
+    sides = torch.randint(0, 2, (B,), generator=gen, dtype=torch.int32)
+    return frames.to(device), sides.to(device)
+
+
+def test_contact_forward_at_full_width(cuda):
+    """The contact-config forward through ``make_infer`` at B=256 on 256x256
+    uint8 frames: K1 and the argmin sweep launch, the outputs have their
+    shapes and finite values, the contact masks are boolean (B, 778) and
+    equal to the same forward's with the plain inside test; the
+    hand_object config's forward has no contact block."""
+    net = _seeded(CONTACT, cuda)
+    frames, sides = _frames(256, 256, 1, cuda)
+    LAUNCHES.clear()
+    out = make_infer(net)(frames, sides)
+    torch.cuda.synchronize()
+    assert LAUNCHES[raytri.KERNEL] and LAUNCHES[nnsqdist.KERNEL_ARGMIN]
+    shapes = {"verts": (256, 778, 3), "joints": (256, 21, 3), "objpoints3d": (256, 642, 3)}
+    for key, shape in shapes.items():
+        assert tuple(out[key].shape) == shape and torch.isfinite(out[key]).all(), key
+    info = out["contact_info"]
+    assert torch.isfinite(info["min_dists"]).all()
+    with torch.inference_mode():
+        _, ref, _ = net({"images": frames, "sides": sides}, INFER_SPEC, no_loss=True,
+                        force_hand=True, force_objects=True,
+                        contains=mesh_contains_points_plain)
+    for key in ("attraction_masks", "repulsion_masks"):
+        assert info[key].dtype == torch.bool and tuple(info[key].shape) == (256, 778)
+        assert torch.equal(info[key], ref["contact_info"][key]), key
+    del net, out, ref
+    ho = make_infer(_seeded(HAND_OBJECT, cuda))(frames, sides)
+    assert "contact_info" not in ho and all(torch.isfinite(ho[k]).all() for k in shapes)
+
+
 def _clouds(seed, B, N, M):
     """Seeded clouds with planted exact ties: every 8th search point
     repeats an earlier one, every 16th query point sits on a search point."""
@@ -152,11 +235,32 @@ def test_nn_kernel_equals_plain(cuda, B, N, M, with_argmin):
         assert torch.equal(garg, warg) and torch.equal(garg.cpu(), carg)
 
 
-def test_chamfer_loss_kernel_route_grads(cuda):
+# the training shapes in both directions (the table's K2 256x778x600 and
+# K3 256x600x642 among them) and the large clouds (K5 with argmin, K4 min
+# only), on tools/kernel_ab.py's scenes
+@pytest.mark.parametrize("B,N,M,with_argmin", [
+    *((b, n, m, a) for b, n, m in ((256, 600, 642), (256, 642, 600), (256, 778, 642),
+                                   (256, 642, 778), (256, 778, 600)) for a in (False, True)),
+    (1, 16384, 16384, True), (1, 20000, 20000, False)])
+def test_nn_kernel_equals_plain_at_full_width(cuda, B, N, M, with_argmin):
+    q, s = kernel_ab.nn_scene(B, N, M, B + N + M, nnsqdist._sms(cuda))
+    name = nnsqdist.KERNEL_ARGMIN if with_argmin else nnsqdist.KERNEL_MIN
+    before = LAUNCHES[name]
+    got, garg = nnsqdist.nn_dir(q, s, with_argmin)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == before + 1
+    want, warg = nnsqdist.nn_dir_plain(q, s, with_argmin)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if with_argmin:
+        assert torch.equal(garg, warg)
+
+
+@pytest.mark.parametrize("B,N,M", [(4, 600, 642), (256, 600, 642), (1, 16384, 16384)])
+def test_chamfer_loss_kernel_route_grads(cuda, B, N, M):
     """Kernel route on the card against the same VJP on the plain minima
     (index_add_ on CUDA is atomic, so the last bits may differ: rtol 1e-5,
     atol 1e-9), and against the kernel route on the CPU."""
-    preds, gts = (t.to(cuda) for t in _clouds(1, 4, 600, 642))
+    preds, gts = (t.to(cuda) for t in _clouds(1, B, N, M))
 
     def route(p, g):
         p = p.clone().requires_grad_(True)
@@ -173,8 +277,8 @@ def test_chamfer_loss_kernel_route_grads(cuda):
     min_p2g, arg_p2g = nnsqdist.nn_dir_plain(preds, gts, True)
     want = torch.mean(torch.mean(min_p2g, 1) + torch.mean(min_g2p, 1))
     wgg, wgp = chamfer._min_sqdists_bwd(gts, preds, arg_g2p, arg_p2g,
-                                        torch.full_like(min_g2p, 1 / (4 * 642)),
-                                        torch.full_like(min_p2g, 1 / (4 * 600)))
+                                        torch.full_like(min_g2p, 1 / (B * M)),
+                                        torch.full_like(min_p2g, 1 / (B * N)))
     assert torch.equal(loss, want)
     torch.testing.assert_close(gp, wgp, rtol=1e-5, atol=1e-9)
     torch.testing.assert_close(gg, wgg, rtol=1e-5, atol=1e-9)
@@ -186,6 +290,27 @@ def test_chamfer_loss_kernel_route_grads(cuda):
         chamfer.chamfer_loss(preds, gts)  # "auto" on CUDA: the kernel, min only
         chamfer.min_sqdist_to(preds, gts)
         assert LAUNCHES[nnsqdist.KERNEL_MIN] == before + 3
+
+
+@pytest.mark.parametrize("N,grad", [(16384, True), (20000, False)])
+def test_large_cloud_chamfer_loss_on_cuda(cuda, N, grad):
+    """``chamfer_loss`` with its default dispatch on one large cloud (the
+    JAX bench's ``chamfer_large``): forward and gradient at 1x16384x16384
+    (two argmin sweeps), forward alone at 1x20000x20000 (two min sweeps);
+    the loss bitwise the plain minima's, the gradient finite."""
+    preds, gts = (t.to(cuda) for t in _clouds(N + 1, 1, N, N))
+    p = preds.clone().requires_grad_(grad)
+    LAUNCHES.clear()
+    l1, l2 = chamfer.chamfer_loss(p, gts)
+    loss = torch.mean(l1 + l2)
+    if grad:
+        loss.backward()
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {nnsqdist.KERNEL_ARGMIN if grad else nnsqdist.KERNEL_MIN: 2}
+    want = torch.mean(torch.mean(nnsqdist.nn_dir_plain(preds, gts)[0], 1)
+                      + torch.mean(nnsqdist.nn_dir_plain(gts, preds)[0], 1))
+    assert torch.equal(loss.detach(), want)
+    assert not grad or torch.isfinite(p.grad).all()
 
 
 def _gt_batch(B, S, seed):
@@ -221,8 +346,7 @@ def test_train_step_on_cuda_matches_cpu_port(cuda):
     LAUNCHES.clear()
     _, glosses = gstep(gstate, batch)
     torch.cuda.synchronize()
-    assert dict(LAUNCHES) == {raytri.KERNEL: 1, nnsqdist.KERNEL_ARGMIN: 6,
-                              nnsqdist.KERNEL_MIN: 1}
+    assert dict(LAUNCHES) == TRAIN_LAUNCHES
     assert all(torch.isfinite(v).all() for v in glosses.values())
     cnet, cstep, cstate = state_on("cpu")
     _, closses = cstep(cstate, batch)
@@ -269,7 +393,7 @@ def test_unfrozen_bn_train_step_on_cuda_matches_cpu_port(cuda):
         return launches, grads, stats
 
     glaunch, ggrads, gstats = run(cuda)
-    assert glaunch == {raytri.KERNEL: 1, nnsqdist.KERNEL_ARGMIN: 6, nnsqdist.KERNEL_MIN: 1}
+    assert glaunch == TRAIN_LAUNCHES
     _, rgrads, rstats = run("cpu", torch.float64)
     for name in zero_grad:
         layer = float(rgrads[name.replace(".bias", ".weight")].abs().max())
@@ -282,6 +406,36 @@ def test_unfrozen_bn_train_step_on_cuda_matches_cpu_port(cuda):
         assert float((ggrads[name] - ref).abs().max()) <= 1e-1 * float(ref.abs().max()), name
     for name, ref in rstats.items():
         assert float((gstats[name] - ref).abs().max()) <= 1e-2 * float(ref.abs().max()), name
+
+
+@pytest.mark.parametrize("train_bn", [False, True], ids=["frozen", "unfrozen"])
+def test_train_step_at_full_width(cuda, train_bn):
+    """The contact-config Adam step (lr 1e-4) at B=256 on 256x256 frames:
+    the launches of ``TRAIN_LAUNCHES`` a step, the loss names, finite
+    losses and a total loss that falls over 10 steps; with unfrozen BN the
+    net back in ``eval()`` and every running statistic moved and finite."""
+    net = _seeded(CONTACT, cuda)
+    cfg = TrainConfig()
+    opt = train.make_optimizer(cfg, net)
+    state = train.create_train_state(net, opt, cfg)
+    step = train.make_train_step(net, opt, BatchSpec(), train_bn=train_bn, device=cuda)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in _gt_batch(256, 256, 1).items()}
+    stats = {k: v.clone() for k, v in net.state_dict().items() if "running_" in k}
+    LAUNCHES.clear()
+    state, losses = step(state, batch)
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == TRAIN_LAUNCHES
+    assert set(losses) == TRAIN_LOSS_KEYS
+    assert all(torch.isfinite(v).all() for v in losses.values())
+    first = float(losses["total_loss"])
+    for _ in range(9):
+        state, losses = step(state, batch)
+    assert float(losses["total_loss"]) < first
+    if train_bn:
+        after = net.state_dict()
+        assert not net.training and stats
+        for k, v in stats.items():
+            assert not torch.equal(after[k], v) and torch.isfinite(after[k]).all(), k
 
 
 def _loop_state(device, B_steps=2, B=8):
@@ -483,7 +637,7 @@ def test_bf16_train_step_on_cuda(cuda):
     _, _, g32, _ = grads(CONTACT, "cpu")
     _, _, g16, _ = grads(CONTACT_BF16, "cpu")
     net, losses, gg, launches = grads(CONTACT_BF16, cuda)
-    assert launches == {raytri.KERNEL: 1, nnsqdist.KERNEL_ARGMIN: 6, nnsqdist.KERNEL_MIN: 1}
+    assert launches == TRAIN_LAUNCHES
     assert gg.dtype == torch.float32 and torch.isfinite(losses["total_loss"])
     assert _rel(gg, g32) <= 3 * _rel(g16, g32)
     before = net.base_net.bn1.running_var.clone()
@@ -493,6 +647,84 @@ def test_bf16_train_step_on_cuda(cuda):
     assert stats.dtype == torch.float32 and not torch.equal(stats, before.to(stats.device))
 
 
+@pytest.mark.parametrize("contact", [False, True], ids=["hand_object_bf16", "contact_bf16"])
+def test_bf16_forward_at_full_width(cuda, contact):
+    """The bf16 rungs' forward through ``make_infer`` at B=256 on 256x256
+    frames: no kernel (hand_object_bf16), or K1 once and two argmin sweeps
+    (contact_bf16); JAX's output dtypes; finite outputs."""
+    cfg = (CONTACT_BF16 if contact
+           else ModelConfig(atlas=CONTACT.atlas, compute_dtype="bfloat16"))
+    frames, sides = _frames(256, 256, 1, cuda)
+    LAUNCHES.clear()
+    got = make_infer(_seeded(cfg, cuda))(frames, sides)
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == ({raytri.KERNEL: 1, nnsqdist.KERNEL_ARGMIN: 2} if contact else {})
+    assert got["verts"].dtype == torch.float32 and got["objpoints3d"].dtype == torch.bfloat16
+    assert all(torch.isfinite(got[k]).all() for k in ("verts", "joints", "objpoints3d"))
+
+
+# the bf16 step's first loss and gradients against the card's float32 step
+# on the same weights and batch (TF32 off): about twice the whole-gradient
+# gap (relative L2) and three times the loss gap between JAX's own bf16 and
+# float32 steps that tests/test_torch_bf16.py computes at B=2, 64 px
+BF16_GRAD_REL = 0.15
+BF16_LOSS_REL = 1e-2
+
+
+def _first_step(net, batch):
+    net.zero_grad(set_to_none=True)
+    total, _, _ = net(batch, BatchSpec())
+    total.backward()
+    return float(total.detach()), {n: p.grad.detach().clone()
+                                   for n, p in net.named_parameters() if p.grad is not None}
+
+
+@pytest.mark.parametrize("geometry_dtype", ["float32", "float32_select", "bfloat16"],
+                         ids=["contact_bf16", "contact_bf16_f32sel", "contact_bf16_bf16sel"])
+def test_bf16_rungs_train_at_full_width(cuda, geometry_dtype):
+    """The bf16 rungs' train step at B=256 on 256x256 frames (Adam, frozen
+    BN): the first step's loss and gradients within ``BF16_LOSS_REL`` and
+    ``BF16_GRAD_REL`` of the float32 step's, ``TRAIN_LAUNCHES`` a step, a
+    total loss that falls over 10 steps; then one unfrozen-BN step of the
+    rung: finite gradients and loss, float32 running statistics, finite,
+    that move."""
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in _gt_batch(256, 256, 1).items()}
+    loss32, g32 = _first_step(_seeded(CONTACT, cuda), batch)
+    cfg = CONTACT_BF16.replace(geometry_dtype=geometry_dtype)
+    net = _seeded(cfg, cuda)
+    loss16, g16 = _first_step(net, batch)
+    assert set(g16) == set(g32)
+    names = sorted(g32)
+    assert _rel(torch.cat([g16[n].flatten() for n in names]),
+                torch.cat([g32[n].flatten() for n in names])) <= BF16_GRAD_REL
+    assert abs(loss16 - loss32) <= BF16_LOSS_REL * abs(loss32)
+    del g16, g32
+    for train_bn in (False, True):
+        net = _seeded(cfg, cuda)
+        stats = {k: v.clone() for k, v in net.state_dict().items() if "running_" in k}
+        tcfg = TrainConfig()
+        opt = train.make_optimizer(tcfg, net)
+        state = train.create_train_state(net, opt, tcfg)
+        step = train.make_train_step(net, opt, BatchSpec(), train_bn=train_bn, device=cuda)
+        LAUNCHES.clear()
+        state, losses = step(state, batch)
+        torch.cuda.synchronize()
+        assert dict(LAUNCHES) == TRAIN_LAUNCHES
+        first = float(losses["total_loss"])
+        assert np.isfinite(first)
+        if train_bn:
+            assert all(torch.isfinite(p.grad).all() for p in net.parameters()
+                       if p.grad is not None)
+            after = net.state_dict()
+            assert all(after[k].dtype == torch.float32 and torch.isfinite(after[k]).all()
+                       for k in stats)
+            assert any(not torch.equal(after[k], v) for k, v in stats.items())
+            continue
+        for _ in range(9):
+            state, losses = step(state, batch)
+        assert float(losses["total_loss"]) < first
+
+
 @pytest.mark.parametrize("N,M", [(778, 642), (600, 642)])
 def test_rung_planes_on_cuda(cuda, N, M):
     """The rungs' planes on the card (``use_kernel=False``): the float32
@@ -500,7 +732,7 @@ def test_rung_planes_on_cuda(cuda, N, M):
     (within 2^-20 of the plane's magnitude), the bf16 plane the CPU
     port's except within the bf16 resolution bound (2^-8, JAX's); values
     are the exact distances of the pairs picked."""
-    x, y = (t.to(cuda) for t in _clouds(N + M, 8, N, M))
+    x, y = (t.to(cuda) for t in _clouds(N + M, 256, N, M))
     mag = float((x.double() ** 2).sum(-1).max() + (y.double() ** 2).sum(-1).max())
     kern = chamfer.chamfer_min_sqdist(x, y, use_kernel=True)
     for dt, bound in ((torch.float32, 2.0 ** -20), (torch.bfloat16, 2.0 ** -8)):
@@ -683,3 +915,22 @@ def test_naive_contact_loss_tie_goes_to_the_first_copy_on_cuda(cuda):
     keep = [j for j in range(p2.shape[1]) if j not in (2, 5)]
     torch.testing.assert_close(k2[:, keep], q2[:, keep], **tol)
     torch.testing.assert_close(k1, q1, rtol=0, atol=1e-6 * float(q1.abs().max()))
+
+
+def test_rotmat_to_axis_angle_on_cuda(cuda):
+    """``rotmat_to_axis_angle`` on the card on 256 x 16 rotations from
+    ``rodrigues`` (angles under 3 rad): no kernel launched, within 1e-5 of
+    the CPU port, the round trip within 1e-4."""
+    from obman_train_tpu_torch.ops import rodrigues, rotmat_to_axis_angle
+
+    rng = np.random.default_rng(21)
+    axes = rng.normal(0, 1, (256, 16, 3))
+    axes /= np.linalg.norm(axes, axis=-1, keepdims=True)
+    aa = torch.from_numpy((axes * rng.uniform(0, 3.0, (256, 16, 1))).astype(np.float32))
+    rot = rodrigues(aa.to(cuda))
+    LAUNCHES.clear()
+    got = rotmat_to_axis_angle(rot)
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {} and torch.isfinite(got).all()
+    assert float((got.cpu() - rotmat_to_axis_angle(rot.cpu())).abs().max()) <= 1e-5
+    assert float((got.cpu() - aa).abs().max()) <= 1e-4

@@ -126,14 +126,14 @@ def test_native_sources_are_the_ports_own_files():
     assert os.path.realpath(build._LIB_DIR).startswith(os.path.realpath(PACKAGE) + os.sep)
 
 
-SCRIPTS = ["chip_smoke.py", "tools/nn_dir_ab.py", "tools/raytri_ab.py"] + sorted(
+SCRIPTS = ["tools/kernel_ab.py"] + sorted(
     os.path.join("tools", n) for n in os.listdir(os.path.join(REPO, "tools"))
     if n.startswith("torch_") and n.endswith(".py"))
 
 
 @pytest.mark.parametrize("rel", SCRIPTS)
 def test_port_scripts_import_nothing_forbidden(rel):
-    """``chip_smoke.py`` and the port's tools run where JAX is absent."""
+    """The port's tools run where JAX is absent."""
     assert "tools/torch_convergence_run.py" in SCRIPTS
     for name in _imported_roots(os.path.join(REPO, rel)):
         assert name.split(".")[0] not in FORBIDDEN, f"{rel} imports {name}"

@@ -5,7 +5,7 @@ The exterior masks must be exactly equal to the JAX
 ``ops/inside.batch_mesh_contains_points`` and to the Pallas kernel run in
 interpret mode (as tests/test_pallas_kernels.py runs it). The CUDA kernel
 itself is held against the plain version on the card by
-``chip_smoke.py`` and by tests/test_torch_cuda.py.
+tests/test_torch_cuda.py.
 """
 
 import os
