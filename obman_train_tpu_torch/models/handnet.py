@@ -193,7 +193,8 @@ class HandNet(nn.Module):
         (``train/debug.py``, JAX :152-156). ``encoder(net, images)`` replaces
         the call ``net(images)`` of each encoder on the NCHW images:
         ``base_net``, and ``atlas_base_net`` where ``atlas.separate_encoder``
-        (the serving path's folded encoders, ``demo.inference.ServeNet``)."""
+        (the folded encoders of the serving path, ``demo.inference.ServeNet``,
+        and of the frozen-BN train step, ``train.steps.fold_encoder``)."""
         if not contact and not no_loss:
             raise ValueError("contact=False needs no_loss=True: the losses read the block")
         cfg = self.cfg

@@ -31,6 +31,9 @@
   parameters, so gradients, the optimizer's moments and the updates stay
   float32 and the optimizers are unchanged; no loss scaling (JAX uses
   none).
+- Frozen BN on the card: each ResNet encoder runs with its BatchNorms
+  folded into its convolutions at every forward, under autograd
+  (:func:`fold_encoder`, ``models/resnet_fold.py``).
 
 The port's state is PyTorch's own: the parameters live in the module and
 the moments in the optimizer, both updated in place, so a
@@ -50,6 +53,7 @@ from torch import nn
 
 from obman_train_tpu_torch.config import TrainConfig
 from obman_train_tpu_torch.device import DeviceLike, resolve_device
+from obman_train_tpu_torch.models import resnet_fold
 from obman_train_tpu_torch.models.handnet import BatchSpec, HandNet
 from obman_train_tpu_torch.models.resnet import _FlaxTrainBN
 from obman_train_tpu_torch.parallel import mesh as parallel
@@ -267,6 +271,30 @@ def _average_unsynced_bn_stats(net: nn.Module, dp: parallel.DataParallel) -> Non
         offset += b.numel()
 
 
+def fold_encoder(handnet: HandNet):
+    """``HandNet.forward``'s ``encoder`` hook for the train step. An encoder
+    in ``eval()`` (frozen BN) that computes in its parameters' dtype, given
+    CUDA float32 images, runs folded: its BatchNorms folded into its
+    convolutions under autograd (``resnet_fold.fold``, inside a
+    ``train.fold`` span that names the encoder), then conv + bias (+
+    residual) + ReLU as one op with its own backward
+    (``resnet_fold.TRAIN``). The running statistics are constants of the
+    step; the weights and the BatchNorms' scale and shift get the
+    gradients of the unfolded chain. Everything else (unfrozen BN, bf16,
+    the CPU) runs ``ResNet.forward``."""
+
+    def encode(net: nn.Module, image: torch.Tensor):
+        if not (image.is_cuda and image.dtype == torch.float32
+                and net.conv1.compute_dtype is None and not net.training):
+            return net(image)
+        name = next((n for n, m in handnet.named_children() if m is net), None)
+        with span("train.fold", name):
+            folded = resnet_fold.fold(net)
+        return resnet_fold.features(folded, image, resnet_fold.TRAIN)
+
+    return encode
+
+
 def _optimizer_params(opt: torch.optim.Optimizer):
     return [p for group in opt.param_groups for p in group["params"]]
 
@@ -363,11 +391,13 @@ def _build_train_step(net, opt, spec, train_bn, accum_steps, device, return_join
     rank_mean = _RankMean(dp) if dp is not None else None
     use_dropout = train_bn and bool(net.cfg.fc_dropout)
     random_cloud = not net.cfg.atlas.mesh
+    encoder = fold_encoder(net)
 
     def forward_backward(batch, regul_scale, gens):
         with span("train.forward"):
             total, results, losses = net(batch, spec, regul_scale=regul_scale,
-                                         dropout_gen=gens[0], points_gen=gens[1])
+                                         dropout_gen=gens[0], points_gen=gens[1],
+                                         encoder=encoder)
         with span("train.backward"):
             total.backward()
         joints = results["joints"].detach() if return_joints else None
