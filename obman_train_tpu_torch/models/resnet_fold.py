@@ -31,12 +31,17 @@ Training folds too. The fold is the same function of the convolutions'
 weights and the BatchNorms' scale and shift as the unfolded chain, so
 computed under autograd at every forward it gives them the same
 gradients; the running statistics are buffers that frozen-BN training
-never writes. :data:`TRAIN` is the pair of ops for that:
-:class:`ConvBiasReLU`, whose forward is :data:`CUDNN`'s on CUDA tensors
-(:data:`PLAIN`'s elsewhere) and whose backward takes the ReLU's mask from
-the saved output and runs one ``convolution_backward`` for the input,
-``W'`` and ``b'``. ``demo.inference.ServeNet`` and the train step
-(``train/steps.py``) decide who takes the folded route.
+never writes. :func:`train_features` runs the folded encoder for that as
+a chain of autograd nodes with hand-written backwards, :class:`FoldedStem`
+and one :class:`FoldedBlockOp` a block, each :func:`features`'s forward
+on :data:`CUDNN` (:data:`PLAIN` on CPU tensors). Each node returns its
+output twice, so a block's two gradients (its next block's first
+convolution's and its residual's) reach its backward apart; at each
+ReLU'd convolution one ``ops.relu_grad.relu_bias_grad`` sums them, masks
+them with the saved output and reduces ``b'``'s gradient in one pass, and
+one ``convolution_backward`` gives the input's and ``W'``'s.
+``demo.inference.ServeNet`` and the train step (``train/steps.py``)
+decide who takes the folded route.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from obman_train_tpu_torch.models.resnet import BasicBlock, Bottleneck, ResNet
+from obman_train_tpu_torch.ops import relu_grad
 
 
 class FoldedConv(NamedTuple):
@@ -94,49 +100,6 @@ def _plain_add_relu(x, c: FoldedConv, z):
 
 CUDNN = Ops(_cudnn_relu, _cudnn_add_relu)
 PLAIN = Ops(_plain_relu, _plain_add_relu)
-
-
-class ConvBiasReLU(torch.autograd.Function):
-    """``relu(conv(x, w) + b [+ z])`` with its own backward, for training.
-
-    The forward is :data:`CUDNN`'s fused op on CUDA tensors and
-    :data:`PLAIN`'s chain elsewhere; it saves only ``x``, ``w`` and its
-    output ``y``. The backward masks the incoming gradient where ``y`` is 0
-    (the ReLU's own backward, which also reads its output), runs one
-    ``convolution_backward`` for the gradients of ``x``, ``w`` and ``b``
-    that autograd asks for, and hands the masked gradient to ``z``."""
-
-    @staticmethod
-    def forward(ctx, x, w, b, z, stride, padding):
-        ops = CUDNN if x.is_cuda else PLAIN
-        c = FoldedConv(w, b, stride, padding)
-        y = ops.conv_relu(x, c) if z is None else ops.conv_add_relu(x, c, z)
-        ctx.save_for_backward(x, w, y)
-        ctx.conv = (stride, padding, z is not None)
-        return y
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, dy):
-        x, w, y = ctx.saved_tensors
-        stride, padding, has_z = ctx.conv
-        need = ctx.needs_input_grad
-        g = torch.ops.aten.threshold_backward(dy, y, 0)
-        dx, dw, db = torch.ops.aten.convolution_backward(
-            g, x, w, [w.shape[0]], stride, padding, (1, 1), False, (0, 0), 1,
-            [need[0], need[1], need[2]])
-        return dx, dw, db, (g if has_z and need[3] else None), None, None
-
-
-def _train_relu(x, c: FoldedConv):
-    return ConvBiasReLU.apply(x, c.weight, c.bias, None, c.stride, c.padding)
-
-
-def _train_add_relu(x, c: FoldedConv, z):
-    return ConvBiasReLU.apply(x, c.weight, c.bias, z, c.stride, c.padding)
-
-
-TRAIN = Ops(_train_relu, _train_add_relu)
 
 
 def _pairs(block: nn.Module):
@@ -223,4 +186,145 @@ def features(folded: Folded, x: torch.Tensor, ops: Ops = CUDNN):
     x = F.max_pool2d(ops.conv_relu(x, folded.stem), 3, 2, 1)
     for fb in folded.blocks:
         x = block(fb, x, ops)
+    return torch.mean(x, dim=(2, 3)), None
+
+
+def _conv_grads(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor, geometry, need_x: bool,
+                need_w: bool):
+    """The gradients of ``x`` and ``w`` given the gradient ``g`` of
+    ``conv(x, w)`` at ``geometry`` (stride, padding); None where not
+    needed."""
+    return torch.ops.aten.convolution_backward(
+        g, x, w, None, *geometry, (1, 1), False, (0, 0), 1, [need_x, need_w, False])[:2]
+
+
+class FoldedStem(torch.autograd.Function):
+    """The stem of :func:`train_features`: ``apply(x, W', b', stride,
+    padding)`` is the max-pool of ``relu(conv(x, W') + b')``, returned
+    twice (the output and a view of it), so that the first block's two
+    users of it (its first convolution, its identity or downsample) hand
+    their gradients back apart. It saves ``x``, ``W'``, the ReLU's output
+    and the max-pool's indices, as the per-op chain's autograd would.
+
+    The backward adds the two gradients (the max-pool output has no ReLU
+    of its own to take them), runs the max-pool's backward, then one
+    ``relu_bias_grad`` (mask and ``b'``'s gradient, written over the
+    max-pool's fresh gradient) and one ``convolution_backward``."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride, padding):
+        c = FoldedConv(w, b, stride, padding)
+        s = (CUDNN if x.is_cuda else PLAIN).conv_relu(x, c)
+        p, idx = torch.ops.aten.max_pool2d_with_indices(s, [3, 3], [2, 2], [1, 1])
+        ctx.save_for_backward(x, w, s, idx)
+        ctx.geometry = (stride, padding)
+        ctx.set_materialize_grads(False)
+        return p, p.view_as(p)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dp, dq):
+        if dp is None and dq is None:
+            return None, None, None, None, None
+        x, w, s, idx = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dp = dq if dp is None else dp if dq is None else dp + dq
+        ds = torch.ops.aten.max_pool2d_with_indices_backward(
+            dp, s, [3, 3], [2, 2], [1, 1], [1, 1], False, idx)
+        ds = ds.contiguous(memory_format=torch.channels_last)
+        g, db = relu_grad.relu_bias_grad(ds, None, s, out=ds)
+        dx, dw = _conv_grads(g, x, w, ctx.geometry, need[0], need[1])
+        return dx, dw, (db if need[2] else None), None, None
+
+
+class FoldedBlockOp(torch.autograd.Function):
+    """One block of :func:`train_features`: ``apply(geometry, x, xs,
+    *params)`` is :func:`block` on ``x`` (its ReLU'd convolutions) and
+    ``xs`` (its identity or downsample), the previous node's two outputs,
+    which hold the same values. ``params`` are each convolution's ``W'``
+    and ``b'`` in the order ReLU'd convolutions, last, downsample;
+    ``geometry`` their (stride, padding) in that order and whether there
+    is a downsample. The output comes back twice, as :class:`FoldedStem`'s.
+    It saves each convolution's input, ``W'`` and output, as the per-op
+    chain's autograd would, and autograd frees them once its backward has
+    run, as it frees the chain's.
+
+    The backward takes the output's two gradients apart (the next block's
+    first convolution's, and its identity's or downsample's) and calls
+    ``relu_bias_grad`` on them and the saved output: one pass gives the
+    masked gradient ``g`` (written over the first gradient, which only the
+    next node's backward or the mean's made) and the last convolution's
+    ``b'`` gradient. Then ``convolution_backward`` for its input and ``W'``,
+    the downsample's where there is one, and the same for each inner ReLU'd
+    convolution; the block input's two gradients go back apart. ``g`` is
+    bit for bit the per-op chain's; the convolutions' gradients come from
+    the same calls on it; ``b'``'s sums in another order."""
+
+    @staticmethod
+    def forward(ctx, geometry, x, xs, *params):
+        convs, has_down = geometry
+        c = [FoldedConv(params[2 * i], params[2 * i + 1], *g) for i, g in enumerate(convs)]
+        fb = FoldedBlock(c[:len(c) - 1 - has_down], c[len(c) - 1 - has_down],
+                         c[-1] if has_down else None)
+        ops = CUDNN if x.is_cuda else PLAIN
+        z = xs
+        if fb.down is not None:
+            d = fb.down
+            z = F.conv2d(xs, d.weight, None, d.stride, d.padding)
+        outs = []
+        for conv in fb.relu_convs:
+            x = ops.conv_relu(x, conv)
+            outs.append(x)
+        y = ops.conv_add_relu(x, fb.last, z)
+        ctx.save_for_backward(xs, *params, *outs, y)
+        ctx.geometry = geometry
+        ctx.set_materialize_grads(False)
+        return y, y.view_as(y)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, dys):
+        convs, has_down = ctx.geometry
+        n = 2 * len(convs)
+        if dy is None and dys is None:
+            return (None,) * (3 + n)
+        x, *saved = ctx.saved_tensors
+        params, acts = saved[:n], saved[n:]  # acts: each ReLU'd output, y last
+        need = ctx.needs_input_grad[3:]  # each W' and b'
+        grads = [None] * n
+        k = len(acts) - 1  # ReLU'd convolutions before the last
+        if dy is None:
+            dy, dys = dys, None
+        a = dy.contiguous(memory_format=torch.channels_last)
+        g, db = relu_grad.relu_bias_grad(a, dys, acts[k], out=a)
+
+        def conv(i, g, x, db=None):
+            dx, dw = _conv_grads(g, x, params[2 * i], convs[i], True, need[2 * i])
+            grads[2 * i], grads[2 * i + 1] = dw, (db if need[2 * i + 1] else None)
+            return dx
+
+        dh = conv(k, g, acts[k - 1] if k else x, db)
+        dskip = conv(k + 1, g, x) if has_down else g
+        for r in reversed(range(k)):
+            g, db = relu_grad.relu_bias_grad(dh, None, acts[r], out=dh)
+            dh = conv(r, g, acts[r - 1] if r else x, db)
+        return (None, dh, dskip, *grads)
+
+
+def _geometry(fb: FoldedBlock):
+    convs = [*fb.relu_convs, fb.last] + ([fb.down] if fb.down is not None else [])
+    return (tuple((c.stride, c.padding) for c in convs), fb.down is not None), [
+        t for c in convs for t in (c.weight, c.bias)]
+
+
+def train_features(folded: Folded, x: torch.Tensor):
+    """:func:`features` of NCHW images ``x`` for training, as a chain of
+    autograd nodes with hand-written backwards: :class:`FoldedStem`, one
+    :class:`FoldedBlockOp` a block, then the mean. The same forward; the
+    fold's own ops stay autograd's."""
+    stem = folded.stem
+    x, xs = FoldedStem.apply(x, stem.weight, stem.bias, stem.stride, stem.padding)
+    for fb in folded.blocks:
+        geometry, params = _geometry(fb)
+        x, xs = FoldedBlockOp.apply(geometry, x, xs, *params)
     return torch.mean(x, dim=(2, 3)), None

@@ -277,11 +277,11 @@ def fold_encoder(handnet: HandNet):
     CUDA float32 images, runs folded: its BatchNorms folded into its
     convolutions under autograd (``resnet_fold.fold``, inside a
     ``train.fold`` span that names the encoder), then conv + bias (+
-    residual) + ReLU as one op with its own backward
-    (``resnet_fold.TRAIN``). The running statistics are constants of the
-    step; the weights and the BatchNorms' scale and shift get the
-    gradients of the unfolded chain. Everything else (unfrozen BN, bf16,
-    the CPU) runs ``ResNet.forward``."""
+    residual) + ReLU as cuDNN's fused ops, the whole encoder one autograd
+    node with a hand-written backward (``resnet_fold.train_features``).
+    The running statistics are constants of the step; the weights and the
+    BatchNorms' scale and shift get the gradients of the unfolded chain.
+    Everything else (unfrozen BN, bf16, the CPU) runs ``ResNet.forward``."""
 
     def encode(net: nn.Module, image: torch.Tensor):
         if not (image.is_cuda and image.dtype == torch.float32
@@ -290,7 +290,7 @@ def fold_encoder(handnet: HandNet):
         name = next((n for n, m in handnet.named_children() if m is net), None)
         with span("train.fold", name):
             folded = resnet_fold.fold(net)
-        return resnet_fold.features(folded, image, resnet_fold.TRAIN)
+        return resnet_fold.train_features(folded, image)
 
     return encode
 

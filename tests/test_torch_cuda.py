@@ -22,7 +22,8 @@ from obman_train_tpu_torch.config import AtlasConfig, ContactConfig, ModelConfig
 from obman_train_tpu_torch.infer import make_infer
 from obman_train_tpu_torch.models import INFER_SPEC, BatchSpec, build_handnet
 from obman_train_tpu_torch.ops import (chamfer, compute_contact_loss,
-                                       mesh_contains_points_plain, nnsqdist, raytri)
+                                       mesh_contains_points_plain, nnsqdist, raytri,
+                                       relu_grad)
 from obman_train_tpu_torch.ops.kernels import LAUNCHES
 from obman_train_tpu_torch.weights import init_weights
 
@@ -35,10 +36,13 @@ CONTACT = ModelConfig(
 HAND_OBJECT = ModelConfig(atlas=CONTACT.atlas)
 # a contact-config train step: K1 once; two argmin sweeps for each of the
 # two atlas Chamfer calls and the contact block; one min-only sweep for
-# min_sqdist_to. An eval forward with losses: K1, the contact block's two
-# argmin sweeps, two min sweeps for each gradient-free Chamfer loss and one
-# for min_sqdist_to
-TRAIN_LAUNCHES = {raytri.KERNEL: 1, nnsqdist.KERNEL_ARGMIN: 6, nnsqdist.KERNEL_MIN: 1}
+# min_sqdist_to; with its encoder folded (frozen BN, float32) one
+# relu_bias_grad per ReLU'd convolution of the ResNet-18 in the backward,
+# none unfolded (bf16, unfrozen BN). An eval forward with losses: K1, the
+# contact block's two argmin sweeps, two min sweeps for each gradient-free
+# Chamfer loss and one for min_sqdist_to
+UNFOLDED_TRAIN_LAUNCHES = {raytri.KERNEL: 1, nnsqdist.KERNEL_ARGMIN: 6, nnsqdist.KERNEL_MIN: 1}
+TRAIN_LAUNCHES = {**UNFOLDED_TRAIN_LAUNCHES, relu_grad.KERNEL: 17}
 EVAL_LAUNCHES = {raytri.KERNEL: 1, nnsqdist.KERNEL_ARGMIN: 2, nnsqdist.KERNEL_MIN: 5}
 TRAIN_LOSS_KEYS = {
     "mano_verts3d", "mano_joints3d", "mano_total_loss", "contact_auc",
@@ -393,7 +397,7 @@ def test_unfrozen_bn_train_step_on_cuda_matches_cpu_port(cuda):
         return launches, grads, stats
 
     glaunch, ggrads, gstats = run(cuda)
-    assert glaunch == TRAIN_LAUNCHES
+    assert glaunch == UNFOLDED_TRAIN_LAUNCHES
     _, rgrads, rstats = run("cpu", torch.float64)
     for name in zero_grad:
         layer = float(rgrads[name.replace(".bias", ".weight")].abs().max())
@@ -411,9 +415,10 @@ def test_unfrozen_bn_train_step_on_cuda_matches_cpu_port(cuda):
 @pytest.mark.parametrize("train_bn", [False, True], ids=["frozen", "unfrozen"])
 def test_train_step_at_full_width(cuda, train_bn):
     """The contact-config Adam step (lr 1e-4) at B=256 on 256x256 frames:
-    the launches of ``TRAIN_LAUNCHES`` a step, the loss names, finite
-    losses and a total loss that falls over 10 steps; with unfrozen BN the
-    net back in ``eval()`` and every running statistic moved and finite."""
+    the launches of ``TRAIN_LAUNCHES`` a step (``UNFOLDED_TRAIN_LAUNCHES``
+    with unfrozen BN), the loss names, finite losses and a total loss that
+    falls over 10 steps; with unfrozen BN the net back in ``eval()`` and
+    every running statistic moved and finite."""
     net = _seeded(CONTACT, cuda)
     cfg = TrainConfig()
     opt = train.make_optimizer(cfg, net)
@@ -424,7 +429,7 @@ def test_train_step_at_full_width(cuda, train_bn):
     LAUNCHES.clear()
     state, losses = step(state, batch)
     torch.cuda.synchronize()
-    assert dict(LAUNCHES) == TRAIN_LAUNCHES
+    assert dict(LAUNCHES) == (UNFOLDED_TRAIN_LAUNCHES if train_bn else TRAIN_LAUNCHES)
     assert set(losses) == TRAIN_LOSS_KEYS
     assert all(torch.isfinite(v).all() for v in losses.values())
     first = float(losses["total_loss"])
@@ -455,15 +460,15 @@ def _loop_state(device, B_steps=2, B=8):
 def test_training_loop_on_cuda_launches_the_kernels(cuda):
     """Two contact-config train steps at B=8 through ``train.loop.epoch_pass``
     with device-side jitter: each step launches K1 once, the argmin sweep 6
-    times and the min sweep once, inside the loop."""
+    times, the min sweep once and the folded encoder's ``relu_bias_grad``
+    17 times, inside the loop."""
     from obman_train_tpu_torch.train.loop import epoch_pass
 
     train_loader, state = _loop_state(cuda)
     LAUNCHES.clear()
     state, meters, pck = epoch_pass(train_loader, state, 0, train=True)
     torch.cuda.synchronize()
-    assert dict(LAUNCHES) == {raytri.KERNEL: 2, nnsqdist.KERNEL_ARGMIN: 12,
-                              nnsqdist.KERNEL_MIN: 2}
+    assert dict(LAUNCHES) == {k: 2 * n for k, n in TRAIN_LAUNCHES.items()}
     assert state.step == 2
     losses = meters.averages()
     assert np.isfinite(losses["total_loss"]) and "contact_loss" in losses
@@ -617,7 +622,7 @@ def test_bf16_forward_on_cuda_is_as_close_to_float32_as_the_cpu_port(cuda):
 
 def test_bf16_train_step_on_cuda(cuda):
     """One bf16 step on the card, frozen and unfrozen BN: the launches of
-    the float32 step, float32 gradients whose distance from the CPU port's
+    an unfolded step, float32 gradients whose distance from the CPU port's
     float32 ones is no more than 3x the CPU port's bf16 distance, and
     float32 running statistics that move in train mode."""
     batch = _gt_batch(2, 64, 0)
@@ -637,7 +642,7 @@ def test_bf16_train_step_on_cuda(cuda):
     _, _, g32, _ = grads(CONTACT, "cpu")
     _, _, g16, _ = grads(CONTACT_BF16, "cpu")
     net, losses, gg, launches = grads(CONTACT_BF16, cuda)
-    assert launches == TRAIN_LAUNCHES
+    assert launches == UNFOLDED_TRAIN_LAUNCHES
     assert gg.dtype == torch.float32 and torch.isfinite(losses["total_loss"])
     assert _rel(gg, g32) <= 3 * _rel(g16, g32)
     before = net.base_net.bn1.running_var.clone()
@@ -684,7 +689,7 @@ def _first_step(net, batch):
 def test_bf16_rungs_train_at_full_width(cuda, geometry_dtype):
     """The bf16 rungs' train step at B=256 on 256x256 frames (Adam, frozen
     BN): the first step's loss and gradients within ``BF16_LOSS_REL`` and
-    ``BF16_GRAD_REL`` of the float32 step's, ``TRAIN_LAUNCHES`` a step, a
+    ``BF16_GRAD_REL`` of the float32 step's, ``UNFOLDED_TRAIN_LAUNCHES`` a step, a
     total loss that falls over 10 steps; then one unfrozen-BN step of the
     rung: finite gradients and loss, float32 running statistics, finite,
     that move."""
@@ -709,7 +714,7 @@ def test_bf16_rungs_train_at_full_width(cuda, geometry_dtype):
         LAUNCHES.clear()
         state, losses = step(state, batch)
         torch.cuda.synchronize()
-        assert dict(LAUNCHES) == TRAIN_LAUNCHES
+        assert dict(LAUNCHES) == UNFOLDED_TRAIN_LAUNCHES
         first = float(losses["total_loss"])
         assert np.isfinite(first)
         if train_bn:

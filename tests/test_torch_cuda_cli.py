@@ -25,8 +25,8 @@ from obman_train_tpu_torch.ops import nnsqdist, raytri
 from obman_train_tpu_torch.ops.kernels import LAUNCHES
 from obman_train_tpu_torch.train import loop
 from obman_train_tpu_torch.utils.logging import parse_log_line
-from tests.test_torch_cuda import (CONTACT, EVAL_LAUNCHES, TRAIN_LAUNCHES, _gt_batch,
-                                    cuda)  # noqa: F401
+from tests.test_torch_cuda import (CONTACT, EVAL_LAUNCHES, TRAIN_LAUNCHES,
+                                   UNFOLDED_TRAIN_LAUNCHES, _gt_batch, cuda)  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -158,15 +158,17 @@ def test_traineval_writes_resumes_and_evaluates(runs):
 
 
 def test_traineval_launches_inside_the_loop(runs):
-    """Every pass of every run: ``TRAIN_LAUNCHES`` a train step and
+    """Every pass of every run: ``TRAIN_LAUNCHES`` a train step
+    (``UNFOLDED_TRAIN_LAUNCHES`` with unfrozen BN, run g) and
     ``EVAL_LAUNCHES`` a val forward; a display step (run e) adds its
     figure's eval forward to the train step."""
     assert {p["run"] for p in runs["passes"]} == set("abcdefg")
     for p in runs["passes"]:
         want = EVAL_LAUNCHES
         if p["train"]:
-            want = {k: n + (EVAL_LAUNCHES[k] if p["run"] == "e" else 0)
-                    for k, n in TRAIN_LAUNCHES.items()}
+            train = UNFOLDED_TRAIN_LAUNCHES if p["run"] == "g" else TRAIN_LAUNCHES
+            want = {k: n + EVAL_LAUNCHES.get(k, 0) * (p["run"] == "e")
+                    for k, n in train.items()}
         assert p["launches"] == want, p
 
 

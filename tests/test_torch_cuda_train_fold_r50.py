@@ -6,7 +6,8 @@ shape head and the contact losses, as ``portbench``'s
 at the tolerances of ``tests/test_torch_cuda_train_fold.py``:
 
 - one step folds each encoder once (two ``train.fold`` spans, one per
-  encoder) and leaves the running statistics as they were;
+  encoder), launches ``relu_bias_grad`` once per ReLU'd convolution of
+  each tower (2 x 49) and leaves the running statistics as they were;
 - with TF32 off, the losses to 1e-4 of the unfolded step's;
 - with cuDNN's TF32 on, as the benchmark runs it, the losses and the
   gradients of each encoder no farther from the TF32-off unfolded step
@@ -23,6 +24,8 @@ import torch
 from obman_train_tpu_torch.assets import synthetic_mano_assets
 from obman_train_tpu_torch.config import AtlasConfig, ContactConfig, ManoConfig, ModelConfig
 from obman_train_tpu_torch.models import build_handnet
+from obman_train_tpu_torch.ops import relu_grad
+from obman_train_tpu_torch.ops.kernels import LAUNCHES
 from obman_train_tpu_torch.weights import init_weights
 from tests.test_torch_cuda_train_fold import (  # noqa: F401  (cuda is a fixture)
     _batch,
@@ -64,9 +67,11 @@ def test_a_step_folds_each_encoder_once(cuda):
     batch = _batch(cuda, b=4)
     stats = {k: v.clone() for k, v in net.state_dict().items() if "running_" in k}
     _step(net, batch, tf32=True)  # plans and builds outside the profile
+    before = LAUNCHES[relu_grad.KERNEL]
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         _step(net, batch, tf32=True)
     assert [ev.name for ev in prof.events()].count("train.fold") == 2
+    assert LAUNCHES[relu_grad.KERNEL] - before == 2 * 49  # the stem and 16 x 3 a tower
     for k, v in net.state_dict().items():
         if "running_" in k:
             assert torch.equal(v, stats[k]), k

@@ -12,7 +12,8 @@ earlier commit and this one, in turns A, B, B, A, to compare the kernels.
 ``ops.raytri`` (``raytri_count``, ``raytri_count_plain``,
 ``triangle_table``, ``_launch_plan``, ``_library``), ``ops.nnsqdist``
 (``nn_dir``, ``nn_dir_plain``, ``_launch_plan``, ``tie_across_slices``),
-``ops.chamfer.chamfer_loss`` and ``ops.kernels.build``. The scenes and
+``ops.chamfer.chamfer_loss``, ``ops.relu_grad`` (where it has one) and
+``ops.kernels.build``. The scenes and
 timers are this file's. A row's bound is the larger of its operations over
 the card's float32 rate and its bytes over the card's HBM rate, both from
 this repository's ``portbench/counts/flops.py`` and ``peaks()``: the
@@ -35,6 +36,14 @@ yardstick of the benchmark's ``raytri_roofline.train`` and
 - ``chamfer_loss`` forward and forward + gradient at 256x600x642 and
   1x16384x16384 on the kernel route: ``ms`` (eager) and the device's busy
   milliseconds a call from torch.profiler (its kernels' durations summed);
+- ``relu_bias_grad``, where the tree has ``ops.relu_grad``: at the stem,
+  layer1 and layer4 shapes of the two training towers (the ResNet-18 at
+  B=512, the ResNet-50 at B=256), with one gradient or two: exactness
+  against the plain version (``g`` bitwise; fatal), ``device_ms`` of the
+  kernel as the folded backward calls it (in place), its bound (2 or 3
+  reads and a write of float32 at the HBM rate), and ``chain_device_ms``
+  of the ATen chain it replaced at the same shape (the add of the two
+  gradients, ``threshold_backward``, the bias sum over N, H and W);
 - ``sass``: the inner loop of each kernel function of the built libraries
   (``cuobjdump -sass``; the innermost loop with the most FMULs), its
   instructions per (point, triangle) test or (query, point) pair by
@@ -67,6 +76,14 @@ NN_ROWS = ((256, 778, 600, False), (256, 600, 642, True), (1, 20000, 20000, Fals
            (1, 16384, 16384, True), (256, 778, 642, True), (256, 642, 600, True),
            (256, 642, 778, True))
 CHAMFER_SHAPES = ((256, 600, 642), (1, 16384, 16384))
+# (name, (N, C, H, W), gradients): relu_bias_grad at the ReLU'd outputs of
+# the training towers' stem, layer1 and layer4 (a block's output takes two
+# gradients, a ReLU inside a block or the stem one)
+RELU_ROWS = (("r18_stem", (512, 64, 128, 128), 1), ("r18_layer1", (512, 64, 64, 64), 2),
+             ("r18_layer1_inner", (512, 64, 64, 64), 1), ("r18_layer4", (512, 512, 8, 8), 2),
+             ("r50_stem", (256, 64, 128, 128), 1), ("r50_layer1", (256, 256, 64, 64), 2),
+             ("r50_layer1_inner", (256, 64, 64, 64), 1), ("r50_layer4", (256, 2048, 8, 8), 2),
+             ("r50_layer4_inner", (256, 512, 8, 8), 1))
 # the SASS inner loops: kernel function, FMULs per unit of work (a
 # point-triangle test: u 4, q 6, v 4, t 4; a query-point pair: 3 squares)
 SASS = {"raytri": ("raytri_count_kernel", 18), "nnsqdist": ("nn_dir_kernel", 3)}
@@ -304,7 +321,7 @@ def main() -> None:
 
     sys.path.insert(0, HERE)
     # the counts and peaks of this repository, whatever --root holds
-    from portbench.counts import flops  # noqa: F401
+    from portbench.counts import flops
 
     sys.path.insert(0, root)  # the tree under test, ahead of this one
     import torch
@@ -312,6 +329,10 @@ def main() -> None:
     from obman_train_tpu_torch.ops import chamfer, nnsqdist, raytri
     from obman_train_tpu_torch.ops.kernels import build
 
+    try:
+        from obman_train_tpu_torch.ops import relu_grad
+    except ImportError:  # a tree from before the kernel
+        relu_grad = None
     if not os.path.realpath(raytri.__file__).startswith(os.path.realpath(root) + os.sep):
         sys.exit(f"kernel_ab: imported {raytri.__file__}, not the tree {root}")
     if not torch.cuda.is_available():
@@ -335,6 +356,35 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True, text=True)
     emit({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi.stdout.strip()})
     sms = nnsqdist._sms(torch.device("cuda", 0))
+
+    peak = flops.peaks()
+    for name, (n, c, h, w), grads in RELU_ROWS if relu_grad is not None else ():
+        gen = torch.Generator(device="cuda").manual_seed(n + c + h)
+
+        def t():
+            return torch.randn(n, h, w, c, generator=gen, device="cuda").permute(0, 3, 1, 2)
+
+        a, y = t(), torch.relu(t())
+        b = t() if grads == 2 else None
+        want, _ = relu_grad.relu_bias_grad_plain(a, b, y)
+        got, _ = relu_grad.relu_bias_grad(a, b, y)
+        exact(f"relu_bias_grad {name}", got, want)
+        del want, got
+
+        def kernel():
+            relu_grad.relu_bias_grad(a, b, y, out=a)
+
+        def chain():
+            g = torch.ops.aten.threshold_backward(a if b is None else a + b, y, 0)
+            g.sum(dim=(0, 2, 3))
+
+        device_ms = graph_ms(kernel, iters=20)
+        bound = (grads + 2) * 4 * n * c * h * w / peak["hbm_bytes_per_s"] * 1e3
+        emit({"relu_bias_grad": [n, c, h, w], "name": name, "gradients": grads,
+              "mismatches": 0, "device_ms": device_ms, "bound_ms": bound, "bound_by": "bytes",
+              "share_of_bound": bound / device_ms, "chain_device_ms": graph_ms(chain, iters=20),
+              "plan": relu_grad._launch_plan(n * h * w, c, sms)})
+        del a, b, y
 
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     dump = open(args.sass_out, "w") if args.sass_out else None
